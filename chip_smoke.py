@@ -7,14 +7,18 @@ Phases, each announced on its own line:
 
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
-2. build: compiles the K3 kernel (csrc/reg_kernel.cu) from this checkout;
-3. K3 against its plain PyTorch version on the card at 480x270, on a
-   numpy-seeded state with holes and on a real state from the pipeline,
-   for both remove_occlusions and both hole-fill modes (valid and
-   blacklisted equal, float planes within rtol 2e-6 / atol 1e-6), and the
-   time of each on the card (CUDA events; the JSON line reports the
-   card's time per call from CUDA-graph replays, the printed line also
-   one eager call's latency, host dispatch included);
+2. build: compiles the K3 kernel (csrc/reg_kernel.cu) from this checkout
+   and prints each instantiation's registers, stack and shared memory and
+   its static SASS instruction count (cuobjdump);
+3. K3 against its plain PyTorch version on the card, bit for bit (NaN
+   equal to NaN), on a numpy-seeded state with holes and on a real state
+   from the pipeline at 480x270, and on states whose border pixels are
+   valid at 480x270 and at the ragged shapes 37x53 and 21x100, for both
+   remove_occlusions and both hole-fill modes; then the time of each on
+   the card at 480x270 (CUDA events; the JSON line reports the card's
+   time per call from CUDA-graph replays, in turns with the plain
+   version, the printed line also one eager call's latency, host
+   dispatch included);
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's launch
    counts must equal what the frame schedule implies, every pose must be
@@ -25,17 +29,20 @@ Phases, each announced on its own line:
    tools/make_port_golden.py): max |pose component difference| <= 1e-3
    over the first interval, seeds% within 2 points on every frame.
 
-The last lines are one JSON object describing each kernel, the
-nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Any failed phase
-raises and the script exits non-zero; without a CUDA card, or outside a
-checkout, it exits non-zero before printing any result.  It never imports
-jax or the JAX package.
+The last lines are one JSON object describing each kernel (its bound is
+the larger of its compulsory bytes over 3.35 TB/s and its float32
+operations on this run's data over 67 TFLOP/s, the H100 SXM's published
+peaks), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+Any failed phase raises and the script exits non-zero; without a CUDA
+card, or outside a checkout, it exits non-zero before printing any
+result.  It never imports jax or the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -47,7 +54,9 @@ PKG = "egomotion_with_local_loop_closures_tpu_torch"
 FRAMES = os.path.join(ROOT, "reference_build", "run_gn", "frames_480x270.npz")
 GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_run_gn.json")
 MAIN_FRAMES = 129
-RTOL, ATOL = 2e-6, 1e-6
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# FLOP/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # seeds% within 2 points, not 1: frame 17 is the first stereo pass against
 # keyframe 16 with a one-frame baseline, where the epipolar gates hang on
 # the last bits of the pose (measured 1.05 points on a one-thread CPU run,
@@ -82,7 +91,8 @@ def schedule(n_frames: int, K: int):
 
 def random_planes(seed, shape):
     """A numpy-seeded hypothesis state with holes, outliers and varied
-    validity (as tests/test_torch_reg_kernel.py builds it)."""
+    validity: the same arrays as random_planes in
+    tests/test_torch_reg_kernel.py, and the two must stay identical."""
     import numpy as np
     rng = np.random.default_rng(seed)
     H, W = shape
@@ -107,20 +117,121 @@ def random_planes(seed, shape):
     return planes, mg
 
 
+def border_planes(seed, shape):
+    """As random_planes, with every border row and column valid and
+    carrying varied var and validity: the same arrays as border_planes in
+    tests/test_torch_reg_kernel.py, and the two must stay identical."""
+    import numpy as np
+    planes, mg = random_planes(seed, shape)
+    rng = np.random.default_rng(seed + 1000)
+    H, W = shape
+    border = np.ones(shape, bool)
+    border[2:H - 2, 2:W - 2] = False
+    valid = planes["valid"] | border
+    f32 = np.float32
+    idepth = (0.5 + rng.uniform(size=shape)).astype(f32)
+    var = (0.002 + 0.05 * rng.uniform(size=shape)).astype(f32)
+    new = ~planes["valid"] & border
+    for name, v in (("idepth", idepth), ("var", var),
+                    ("idepth_smoothed", idepth), ("var_smoothed", var),
+                    ("validity", rng.uniform(0.0, 60.0, size=shape))):
+        planes[name] = np.where(new, v, planes[name]).astype(f32)
+    planes["valid"] = valid
+    return planes, mg
+
+
 def compare(ref, got, fields):
-    """Discrete planes equal, float planes within RTOL/ATOL; returns the
-    largest absolute float difference."""
+    """Every plane equal bit for bit (NaN equal to NaN); returns the
+    largest absolute float difference, 0 when it passes."""
     import torch
     worst = 0.0
     for name in fields:
         a, b = getattr(ref, name), getattr(got, name)
-        if a.dtype in (torch.bool, torch.int32):
-            check(torch.equal(a, b), f"{name} differs")
-        else:
-            torch.testing.assert_close(b, a, rtol=RTOL, atol=ATOL,
-                                       msg=lambda m: f"{name}: {m}")
-            worst = max(worst, float((a - b).abs().max()))
+        if a.dtype == torch.float32:
+            d = (a - b).abs().nan_to_num(0.0)
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{name}: {m}")
     return worst
+
+
+def kernel_label(mangled):
+    """reg_kernel<kFill, kOccl> from a mangled kernel name."""
+    m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
+    return (f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>" if m
+            else mangled)
+
+
+def tile_of(src):
+    """(rows, columns) of the output tile a block of csrc/reg_kernel.cu
+    owns, one thread a pixel, from its kTileY and kTileX."""
+    dims = dict(re.findall(r"constexpr int (kTile[XY]) = (\d+);", src))
+    check(set(dims) == {"kTileX", "kTileY"}, "reg_kernel.cu declares its tile")
+    return int(dims["kTileY"]), int(dims["kTileX"])
+
+
+def kernel_resources(lib_path, cuobjdump):
+    """{kernel: its registers, stack and shared memory} (cuobjdump
+    -res-usage: the numbers ptxas -v prints)."""
+    res, name = {}, None
+    for line in run([cuobjdump, "-res-usage", str(lib_path)]).splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = kernel_label(m.group(1))
+        elif "REG:" in line and name:
+            res[name] = " ".join(line.split()[:4])
+    return res
+
+
+def sass_counts(lib_path, cuobjdump):
+    """Static SASS instructions of each kernel in the library, NOPs left
+    out: {kernel: [count of each part between two barriers]}."""
+    out = run([cuobjdump, "-sass", str(lib_path)])
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            counts[name] = [0]
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name is None or not m or m.group(1).split()[0] == "NOP":
+            continue
+        counts[name][-1] += 1
+        if "BAR.SYNC" in m.group(1):
+            counts[name].append(0)
+    return counts
+
+
+def k3_work(state, maxg, cfg, occl, filled):
+    """(compulsory bytes, float32 operations) of one K3 call on this data.
+    Bytes: each input plane read once, each output plane written once.
+    Operations, each add, sub, mul, div or compare one: with the fill,
+    2 a valid pixel (1/var and its product with idepth) and 101 a hole
+    that passes the region and gradient gates (75 tap sums, the validity
+    score, the division); the smoothing, 12 a valid pixel after the fill
+    (six reciprocals) and 25 taps of 9 (12 with remove_occlusions) plus 3
+    a pixel it touches.  ``filled``: the state after the fill (``state``
+    without it)."""
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS)
+    from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
+    H, W = state.valid.shape
+    planes = [getattr(state, n) for n in FIELDS]
+    written = FIELDS if maxg is not None else reg_kernel._SMOOTHED
+    nbytes = sum(t.numel() * t.element_size() for t in planes)
+    nbytes += sum(getattr(state, n).numel() * getattr(state, n).element_size()
+                  for n in written)
+    ops = 0
+    if maxg is not None:
+        nbytes += maxg.numel() * maxg.element_size()
+        holes = ~state.valid[3:H - 3, 3:W - 2] & (
+            maxg[3:H - 3, 3:W - 2] >= cfg.min_abs_grad_decrease)
+        ops += 2 * int(state.valid.sum()) + 101 * int(holes.sum())
+    touched = int(filled.valid[3:H - 3, 2:W - 2].sum())
+    ops += 12 * int(filled.valid.sum()) + (25 * (12 if occl else 9) + 3) \
+        * touched
+    return nbytes, ops
 
 
 def call_ms(fn, reps=30):
@@ -217,26 +328,51 @@ def main() -> int:
     reg_kernel._library()
     print(f"built {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in reg_kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas: " + line.strip())
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
+    cuobjdump = os.path.join(os.path.dirname(reg_kernel._find_nvcc()),
+                             "cuobjdump")
+    resources = kernel_resources(lib, cuobjdump)
+    cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
+    H, W = cfg.shape
+    ty, tx = tile_of(reg_kernel.SOURCE.read_text())
+    threads = -(-H // ty) * -(-W // tx) * ty * tx
+    for fn, parts in sass_counts(lib, cuobjdump).items():
+        # an upper estimate of the instruction time: the kernel runs one
+        # thread per pixel of the tiles that cover the image, each thread
+        # runs every instruction once, four warp instructions a clock on
+        # each of 132 SMs
+        instr_us = sum(parts) * threads / 32 / (132 * 4 * clock_mhz)
+        print(f"{fn}: {resources.get(fn)}; {sum(parts)} SASS "
+              f"instructions, by barrier {parts}; all of them on every "
+              f"thread at {H}x{W} ({tx}x{ty} tiles): {instr_us:.3f} us at "
+              f"{clock_mhz:.0f} MHz")
 
     frames = np.load(FRAMES)["frames"]
-    cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
     check(frames.shape[1:] == cfg.shape, f"frames are {frames.shape[1:]}")
 
-    phase("3 K3 against plain PyTorch at 480x270")
-    planes, mg = random_planes(7, cfg.shape)
-    seeded = (DepthMapState(**{k: torch.as_tensor(v, device=dev)
-                               for k, v in planes.items()}),
-              torch.as_tensor(mg, device=dev))
+    phase("3 K3 against plain PyTorch, bit for bit")
+
+    def on_card(planes_mg):
+        planes, mg = planes_mg
+        return (DepthMapState(**{k: torch.as_tensor(v, device=dev)
+                                 for k, v in planes.items()}),
+                torch.as_tensor(mg, device=dev))
     st = pipeline.init_pipeline(frames[0], cfg, dev)
     st, _ = pipeline.process_interval(st, list(frames[1:8]), cfg)
     real = (st.depth, st.kf.maxgrad)
+    cases = [("seeded 270x480", on_card(random_planes(7, cfg.shape))),
+             ("real 270x480", real),
+             ("valid-border 270x480", on_card(border_planes(9, cfg.shape)))]
+    cases += [(f"{kind} {H}x{W}", on_card(make(11, (H, W))))
+              for H, W in ((37, 53), (21, 100))
+              for kind, make in (("seeded", random_planes),
+                                 ("valid-border", border_planes))]
     worst = {"do_regularization": 0.0, "regularize": 0.0}
-    for label, (state, maxg) in (("seeded", seeded), ("real", real)):
+    for label, (state, maxg) in cases:
+        H, W = state.valid.shape
         for lsd in (False, True):
-            c = cfg.replace(lsd_correct_hole_fill=lsd)
+            c = cfg.replace(rows=H, cols=W, lsd_correct_hole_fill=lsd)
             for occl in (False, True):
                 got = reg_kernel.do_regularization(state, maxg, c, occl)
                 ref = propagate.do_regularization(state, maxg, c, occl)
@@ -249,7 +385,7 @@ def main() -> int:
                                                  e1)
                 worst["regularize"] = max(worst["regularize"], e2)
                 print(f"{label} state, lsd_correct_hole_fill={lsd}, "
-                      f"remove_occlusions={occl}: equal within tolerance "
+                      f"remove_occlusions={occl}: equal bit for bit "
                       f"(max abs err {e1:.3g} / {e2:.3g})")
     state, maxg = real
     timed = {
@@ -260,24 +396,36 @@ def main() -> int:
             lambda: reg_kernel.regularize(state, cfg, True),
             lambda: propagate.regularize(state, cfg, True)),
     }
-    times = {}
+    work = {
+        "do_regularization": k3_work(
+            state, maxg, cfg, False, propagate.fill_holes(state, maxg, cfg)),
+        "regularize": k3_work(state, None, cfg, True, state),
+    }
+    times, bounds = {}, {}
     for name, (kern, plain) in timed.items():
-        for fn in (plain, kern):
-            fn()                                   # warm-up
-        # turns plain/kernel/kernel/plain; device time per call, then the
+        plain()
+        kern()                                     # warm-up
+        # turns plain/kernel/kernel/plain: device time per call, then the
         # latency of one call on an idle card (host dispatch included)
         runs = [device_ms(f, reps) for f, reps in
                 ((plain, 10), (kern, 200), (kern, 200), (plain, 10))]
         ahead = all(a for _, a in runs)
-        p1, k1, k2, p2 = (t for t, _ in runs)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        ts = [t for t, _ in runs]
+        times[name] = ((ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2)
+        nbytes, ops = work[name]
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+        bounds[name] = (1e3 * max(t_bytes, t_ops),
+                        "bytes" if t_bytes >= t_ops else "operations")
         lat_k, lat_p = call_ms(kern), call_ms(plain)
         print(f"{name} at 270x480: device time per call kernel "
-              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms "
-              f"(turns plain/kernel/kernel/plain: {p1:.5f} {k1:.5f} "
-              f"{k2:.5f} {p2:.5f}; host queue stayed ahead: {ahead}); "
-              f"latency of one call, median of 30: kernel {lat_k:.4f} ms, "
-              f"plain {lat_p:.4f} ms; on {gpu}")
+              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms"
+              f" (turns: {' '.join(f'{t:.5f}' for t in ts)}; host "
+              f"queue stayed ahead: {ahead}); latency of one call, median "
+              f"of 30: kernel {lat_k:.4f} ms, plain {lat_p:.4f} ms; bound "
+              f"{bounds[name][0]:.5f} ms by {bounds[name][1]} ({nbytes} B, "
+              f"{ops} float32 ops: {1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} "
+              f"us), {100 * bounds[name][0] / times[name][0]:.1f} % of it "
+              f"reached; on {gpu}")
 
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
@@ -332,7 +480,8 @@ def main() -> int:
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": worst[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name in ("do_regularization", "regularize")]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,15 @@
 Replaces the TPU kernel
 ``egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py::do_regularization_pallas``
 (fillDepthHoles + regularizeDepthMap fused in one Pallas call).  The CUDA
-source is ``csrc/reg_kernel.cu``: one thread per pixel, a fill pass and a
-smoothing pass.  What bounds it on the card and how it is laid out is
-written at the top of that file.
+source is ``csrc/reg_kernel.cu``: one launch per call, each block filling
+and smoothing a 32x8 tile from shared memory.  What bounds it on the card
+and how it is laid out is written at the top of that file.
 
-Two wrappers, each with its launch count in :data:`launches`:
+Two wrappers, each making one launch per call and counting it in
+:data:`launches`:
 
-- :func:`do_regularization` -- both passes (two launches, counted once);
-- :func:`regularize` -- the smoothing pass alone (the standalone
+- :func:`do_regularization` -- the fill, then the smoothing;
+- :func:`regularize` -- the smoothing alone (the standalone
   regularizeDepthMap calls of the pipeline).
 
 For a tensor on the CPU each wrapper runs the plain PyTorch version
@@ -43,14 +44,12 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "reg_kernel.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 # Launches on the CUDA path since the last reset_launches(), per wrapper.
 launches: Dict[str, int] = {"do_regularization": 0, "regularize": 0}
 
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""      # nvcc's output of the build this process made, if any
 
 
 def reset_launches() -> None:
@@ -72,7 +71,6 @@ def _find_nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/reg_kernel.cu`` unless a library of this exact source
     and flag set is already built; returns the library's path."""
-    global build_log
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libellc_reg_{digest}.so"
@@ -82,23 +80,26 @@ def build() -> Path:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                            str(SOURCE)], capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}"
+                           f"{proc.stderr}")
     os.replace(tmp, lib)
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signature of ``ellc_reg`` on a loaded library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ellc_reg.argtypes = [p] * 15 + [i, i, i, i, f, i, f, f, f, i,
+                                        f, f, f, p]
+    lib.ellc_reg.restype = i
     return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ellc_reg_fill.argtypes = [p] * 15 + [i, i, f, i, f, f, f, i, p]
-        lib.ellc_reg_fill.restype = i
-        lib.ellc_reg_smooth.argtypes = [p] * 11 + [i, i, f, f, f, i, p]
-        lib.ellc_reg_smooth.restype = i
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 
@@ -137,35 +138,41 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _fill(state: DepthMapState, maxgrad: torch.Tensor,
-          cfg: ELLCConfig) -> DepthMapState:
+# the planes that regularizeDepthMap alone writes
+_SMOOTHED = ("idepth_smoothed", "var_smoothed", "blacklisted", "valid")
+
+
+def _launch(lib: ctypes.CDLL, state: DepthMapState,
+            kf_maxgrad: Optional[torch.Tensor], cfg: ELLCConfig,
+            remove_occlusions: bool, stream: int) -> DepthMapState:
+    """One launch of ``ellc_reg`` on ``stream``: with the fill when
+    ``kf_maxgrad`` is given (all seven planes written), else the
+    smoothing alone (four planes written)."""
+    fill = kf_maxgrad is not None
+    out = {n: torch.empty_like(getattr(state, n))
+           for n in (FIELDS if fill else _SMOOTHED)}
     H, W = state.idepth.shape
-    out = {n: torch.empty_like(getattr(state, n)) for n in FIELDS}
-    stream = torch.cuda.current_stream(state.idepth.device).cuda_stream
-    err = _library().ellc_reg_fill(
-        *[_ptr(getattr(state, n)) for n in FIELDS], _ptr(maxgrad),
-        *[_ptr(out[n]) for n in FIELDS], H, W,
+    err = lib.ellc_reg(
+        *[_ptr(getattr(state, n)) for n in FIELDS],
+        _ptr(kf_maxgrad) if fill else None,
+        *[_ptr(out[n]) if n in out else None for n in FIELDS],
+        H, W, int(fill), int(remove_occlusions),
         cfg.min_abs_grad_decrease, cfg.min_blacklist,
         cfg.val_sum_min_for_create, cfg.val_sum_min_for_unblacklist,
         cfg.var_random_init, int(cfg.lsd_correct_hole_fill),
-        ctypes.c_void_p(stream))
-    _raise_on(err, "ellc_reg_fill")
-    return DepthMapState(**out)
-
-
-def _smooth(state: DepthMapState, cfg: ELLCConfig,
-            remove_occlusions: bool) -> DepthMapState:
-    H, W = state.idepth.shape
-    written = ("idepth_smoothed", "var_smoothed", "blacklisted", "valid")
-    out = {n: torch.empty_like(getattr(state, n)) for n in written}
-    stream = torch.cuda.current_stream(state.idepth.device).cuda_stream
-    err = _library().ellc_reg_smooth(
-        *[_ptr(getattr(state, n)) for n in FIELDS],
-        *[_ptr(out[n]) for n in written], H, W,
         cfg.diff_fac_smoothing, cfg.reg_dist_var, cfg.val_sum_min_for_keep,
-        int(remove_occlusions), ctypes.c_void_p(stream))
-    _raise_on(err, "ellc_reg_smooth")
+        ctypes.c_void_p(stream))
+    _raise_on(err, "ellc_reg")
     return state.replace(**out)
+
+
+def _cuda(state: DepthMapState, kf_maxgrad: Optional[torch.Tensor],
+          cfg: ELLCConfig, remove_occlusions: bool) -> DepthMapState:
+    _check(state, kf_maxgrad)
+    with torch.cuda.device(state.idepth.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _launch(_library(), state, kf_maxgrad, cfg, remove_occlusions,
+                       stream)
 
 
 def do_regularization(state: DepthMapState, kf_maxgrad: torch.Tensor,
@@ -176,21 +183,17 @@ def do_regularization(state: DepthMapState, kf_maxgrad: torch.Tensor,
     if state.idepth.device.type == "cpu":
         return propagate.do_regularization(state, kf_maxgrad, cfg,
                                            remove_occlusions)
-    _check(state, kf_maxgrad)
-    with torch.cuda.device(state.idepth.device):
-        out = _smooth(_fill(state, kf_maxgrad, cfg), cfg, remove_occlusions)
+    out = _cuda(state, kf_maxgrad, cfg, remove_occlusions)
     launches["do_regularization"] += 1
     return out
 
 
 def regularize(state: DepthMapState, cfg: ELLCConfig,
                remove_occlusions: bool = False) -> DepthMapState:
-    """regularizeDepthMap alone: the kernel's smoothing pass for CUDA
+    """regularizeDepthMap alone: the kernel without the fill for CUDA
     tensors, ``propagate.regularize`` for CPU tensors."""
     if state.idepth.device.type == "cpu":
         return propagate.regularize(state, cfg, remove_occlusions)
-    _check(state)
-    with torch.cuda.device(state.idepth.device):
-        out = _smooth(state, cfg, remove_occlusions)
+    out = _cuda(state, None, cfg, remove_occlusions)
     launches["regularize"] += 1
     return out

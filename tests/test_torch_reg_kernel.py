@@ -8,7 +8,9 @@ against its Pallas kernel in interpret mode, at 48x64, for both
 atol 1e-6 (the tolerance the JAX package's own Pallas-vs-XLA test uses:
 XLA may contract a multiply-add into an FMA where PyTorch rounds twice).
 The CUDA kernel against the plain version runs only where there is a
-card; on such a machine (which need not have jax) run them with
+card, and must equal it bit for bit, also on ragged tile edges and on
+states whose border pixels are valid; on such a machine (which need not
+have jax) run them with
 ``python -m pytest tests/test_torch_reg_kernel.py -m cuda --noconftest``.
 That is why this file imports the JAX package in a fixture and not at the
 top.
@@ -34,7 +36,8 @@ KW = dict(rows=48, cols=64, fx=60.0, fy=60.0, cx=32.0, cy=24.0)
 
 def random_planes(seed, shape=SHAPE):
     """A numpy-seeded hypothesis state with holes, outliers and varied
-    validity, so that every gate of both passes sees both outcomes."""
+    validity, so that every gate of both passes sees both outcomes.
+    chip_smoke.py keeps an identical copy; the two must stay identical."""
     rng = np.random.default_rng(seed)
     H, W = shape
     f32 = np.float32
@@ -56,6 +59,32 @@ def random_planes(seed, shape=SHAPE):
         blacklisted=rng.integers(-3, 2, size=shape).astype(np.int32),
         valid=valid)
     return planes, mg
+
+
+def border_planes(seed, shape=SHAPE):
+    """As :func:`random_planes`, but with every border row and column
+    valid and carrying varied, NaN-free var and validity: the taps near the
+    image edge then read real values beside the edge values.  chip_smoke.py
+    keeps an identical copy; the two must stay identical."""
+    planes, mg = random_planes(seed, shape)
+    rng = np.random.default_rng(seed + 1000)
+    H, W = shape
+    border = np.ones(shape, bool)
+    border[2:H - 2, 2:W - 2] = False
+    valid = planes["valid"] | border
+    f32 = np.float32
+    idepth = (0.5 + rng.uniform(size=shape)).astype(f32)
+    var = (0.002 + 0.05 * rng.uniform(size=shape)).astype(f32)
+    new = ~planes["valid"] & border
+    for name, v in (("idepth", idepth), ("var", var),
+                    ("idepth_smoothed", idepth), ("var_smoothed", var),
+                    ("validity", rng.uniform(0.0, 60.0, size=shape))):
+        planes[name] = np.where(new, v, planes[name]).astype(f32)
+    planes["valid"] = valid
+    return planes, mg
+
+
+STATES = {"seeded": random_planes, "valid_border": border_planes}
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +154,22 @@ def test_regularize_alone_matches_jax(jx, occl):
     assert_states_match(ref, got)
 
 
+@pytest.mark.parametrize("lsd", [False, True])
+@pytest.mark.parametrize("occl", [False, True])
+def test_plain_matches_jax_on_valid_borders(jx, occl, lsd):
+    planes, mg = border_planes(seed=13 + 2 * occl + lsd, shape=(37, 53))
+    H, W = planes["valid"].shape
+    kw = dict(KW, rows=H, cols=W)
+    ref = jax_fields(jx.prop.do_regularization(
+        jx.state(planes), jx.jnp.asarray(mg),
+        jx.Cfg(lsd_correct_hole_fill=lsd, **kw), remove_occlusions=occl))
+    got = torch_fields(reg_kernel.do_regularization(
+        to_torch(planes), torch.as_tensor(mg),
+        ELLCConfig(lsd_correct_hole_fill=lsd, **kw), remove_occlusions=occl))
+    assert_states_match(ref, got)
+    assert planes["valid"][0].all() and planes["valid"][:, -1].all()
+
+
 def test_fill_holes_matches_jax(jx):
     planes, mg = random_planes(seed=5)
     ref = jax_fields(jx.prop.fill_holes(jx.state(planes), jx.jnp.asarray(mg),
@@ -162,12 +207,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def assert_states_equal(ref, got):
+    """Bit for bit, NaN equal to NaN."""
+    for name in FIELDS:
+        a, b = getattr(ref, name), getattr(got, name)
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"field {name}: {m}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(48, 64), (270, 480)])
+@pytest.mark.parametrize("state", sorted(STATES))
+@pytest.mark.parametrize("shape", [(48, 64), (270, 480), (37, 53), (21, 100)])
 @pytest.mark.parametrize("lsd", [False, True])
 @pytest.mark.parametrize("occl", [False, True])
-def test_cuda_kernel_matches_plain(cuda_device, shape, occl, lsd):
-    planes, mg = random_planes(seed=7, shape=shape)
+def test_cuda_kernel_matches_plain(cuda_device, shape, occl, lsd, state):
+    planes, mg = STATES[state](seed=7, shape=shape)
     H, W = shape
     cfg = ELLCConfig(rows=H, cols=W, lsd_correct_hole_fill=lsd)
     st = to_torch(planes, cuda_device)
@@ -179,5 +233,5 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, occl, lsd):
     assert reg_kernel.launches == {"do_regularization": 1, "regularize": 1}
     ref = propagate.do_regularization(st, mgt, cfg, remove_occlusions=occl)
     ref_r = propagate.regularize(st, cfg, remove_occlusions=occl)
-    assert_states_match(torch_fields(ref), torch_fields(got))
-    assert_states_match(torch_fields(ref_r), torch_fields(got_r))
+    assert_states_equal(ref, got)
+    assert_states_equal(ref_r, got_r)
