@@ -27,9 +27,28 @@ Phases, each announced on its own line:
 5. golden: the first 17 frames against the JAX package's output
    (tests/data/port_golden_run_gn.json, written by
    tools/make_port_golden.py): max |pose component difference| <= 1e-3
-   over the first interval, seeds% within 2 points on every frame.
+   over the first interval, seeds% within 2 points on every frame;
+6. LC bootstrap: ellc_lc.run_ellc_lc over the first 80 frames of
+   reference_build/run_lc with max_frames=80 (the reference binary's
+   ``1 10 1`` run: 79 tracked frames, one rotation averaging, no replay)
+   against the JAX package's output (tests/data/port_golden_run_lc.json,
+   tools/make_port_golden.py --lc): the same loop-edge pairs, KL within
+   1e-4, edge rotation components within 4.4e-3 rad (0.25 degrees),
+   corrected poses within 1e-2 per component; K3's launch counts equal
+   the LC schedule; prints the edge pairs in common with the binary's
+   matchframes_globalopt.txt;
+7. LC mode: run_ellc_lc over exactly 144 frames of run_lc, no
+   max_frames: the bootstrap batch and two batches of 32 frames, each
+   rotation-averaged and replayed, the stream ending on a batch boundary;
+   every pose finite, frame ids 2..144 once each, three batches, at least
+   one loop edge, K3's launch counts equal to the schedule with replays;
+   prints LC frames/s and the time of each phase (track, window, ra,
+   replay).
 
-The last lines are one JSON object describing each kernel (its bound is
+Each driven path (phases 4, 6 and 7) sets K3's launch counts to 0 just
+before it and reads them just after.  The last lines are one JSON object
+describing each kernel (``launches`` from phase 4, and every path's count
+under ``launches_by_path``; its bound is
 the larger of its compulsory bytes over 3.35 TB/s and its float32
 operations on this run's data over 67 TFLOP/s, the H100 SXM's published
 peaks), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -53,7 +72,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "egomotion_with_local_loop_closures_tpu_torch"
 FRAMES = os.path.join(ROOT, "reference_build", "run_gn", "frames_480x270.npz")
 GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_run_gn.json")
+LC_GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_run_lc.json")
+LC_EDGES = os.path.join(ROOT, "reference_build", "run_lc", "outputs",
+                        "matchframes_globalopt.txt")
 MAIN_FRAMES = 129
+LC_BOOTSTRAP_FRAMES, LC_FRAMES = 80, 144
+# K3 launches of the two LC runs, counted by hand from the frame schedule
+# (K = 8; the init launches one regularize, a track_refine step one
+# do_regularization, a keyframe step two and one regularize).  Phase 6,
+# 80 frames with max_frames=80: one batch of frames 2..80, keyframes 8,
+# 16, ..., 80, so 69 track_refine steps and 10 keyframe steps, no replay:
+# 69 + 2 x 10 = 89 and 1 + 10 = 11.  Phase 7, 144 frames: that batch and
+# its replay (89 and 10 each), then frames 81..112 and 113..144, each 28
+# track_refine and 4 keyframe steps, each replayed (36 and 4, four times):
+# 89 + 89 + 4 x 36 = 322 and 1 + 10 + 10 + 4 x 4 = 37.
+LC_BOOTSTRAP_LAUNCHES = {"do_regularization": 89, "regularize": 11}
+LC_MODE_LAUNCHES = {"do_regularization": 322, "regularize": 37}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -281,7 +315,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    for need in (os.path.join(ROOT, PKG, "__init__.py"), FRAMES, GOLDEN):
+    for need in (os.path.join(ROOT, PKG, "__init__.py"), FRAMES, GOLDEN,
+                 LC_GOLDEN, LC_EDGES):
         if not os.path.exists(need):
             print(f"chip_smoke: {need} is missing: run from a checkout of "
                   f"the repository", file=sys.stderr)
@@ -297,7 +332,7 @@ def main() -> int:
         FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
-        io as ellc_io, pipeline, runner)
+        ellc_lc, io as ellc_io, pipeline, runner)
     check(os.path.dirname(os.path.abspath(port.__file__))
           == os.path.join(ROOT, PKG), "the port imported from this checkout")
     check("jax" not in sys.modules, "jax stays unimported")
@@ -359,7 +394,7 @@ def main() -> int:
                                  for k, v in planes.items()}),
                 torch.as_tensor(mg, device=dev))
     st = pipeline.init_pipeline(frames[0], cfg, dev)
-    st, _ = pipeline.process_interval(st, list(frames[1:8]), cfg)
+    st, _, _ = pipeline.process_interval(st, list(frames[1:8]), cfg)
     real = (st.depth, st.kf.maxgrad)
     cases = [("seeded 270x480", on_card(random_planes(7, cfg.shape))),
              ("real 270x480", real),
@@ -474,11 +509,95 @@ def main() -> int:
     check(d_pose[first].max() <= POSE_TOL, "poses match the golden file")
     check(d_seeds.max() <= SEEDS_TOL, "seeds% match the golden file")
 
+    with open(LC_GOLDEN) as f:
+        lc_golden = json.load(f)
+    lc_cfg = ELLCConfig().replace(**lc_golden["config_overrides"])
+    lc_frames = np.load(os.path.join(ROOT, lc_golden["frames_file"]))[
+        "frames"]
+    n_lc = lc_golden["num_input_frames"]
+    check(n_lc == lc_golden["max_frames"] == LC_BOOTSTRAP_FRAMES,
+          f"the LC golden file covers {LC_BOOTSTRAP_FRAMES} frames")
+    phase(f"6 LC bootstrap: run_ellc_lc over {n_lc} frames of run_lc "
+          f"(max_frames {lc_golden['max_frames']}) on cuda")
+    expect6 = LC_BOOTSTRAP_LAUNCHES
+    stats6 = {}
+    torch.cuda.synchronize()
+    reg_kernel.reset_launches()
+    t0 = time.perf_counter()
+    res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]), lc_cfg, dev,
+                               max_frames=lc_golden["max_frames"],
+                               stats=stats6)
+    torch.cuda.synchronize()
+    wall6 = time.perf_counter() - t0
+    launches6 = dict(reg_kernel.launches)
+    print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
+          f"batch(es), {len(res6.frame_ids)} corrected poses in "
+          f"{wall6:.3f} s; phases (s) "
+          f"{ {k: round(v, 3) for k, v in stats6.items()} }")
+    check(launches6 == expect6, "K3 launch counts match the LC bootstrap")
+    check(res6.num_batches == lc_golden["num_batches"], "LC batch count")
+    check(res6.frame_ids.tolist() == lc_golden["frame_ids"], "LC frame ids")
+    ours = [(int(e.frame_id), int(e.matched_kf_id)) for e in res6.loop_edges]
+    g_edges = lc_golden["edges"]
+    theirs = [(e["frame_id"], e["matched_kf_id"]) for e in g_edges]
+    binary = {(int(r[0]), int(r[1]))
+              for r in np.atleast_2d(np.loadtxt(LC_EDGES))}
+    print(f"loop edges: {len(ours)} here, {len(theirs)} in the golden file; "
+          f"against the binary's {len(binary)}: {len(binary & set(ours))} in "
+          f"common, only the binary's {sorted(binary - set(ours))}, only "
+          f"here {sorted(set(ours) - binary)}")
+    check(ours == theirs, "loop-edge pairs equal the golden file's")
+    d_kl = max(abs(e.match_value - g["match_value"])
+               for e, g in zip(res6.loop_edges, g_edges))
+    d_rot = max(float(np.abs(np.asarray(e.pose_wrt_matched[:3])
+                             - np.asarray(g["pose_wrt_matched"][:3])).max())
+                for e, g in zip(res6.loop_edges, g_edges))
+    d_cor = float(np.abs(res6.world_poses
+                         - np.asarray(lc_golden["world_poses"])).max())
+    print(f"max |KL diff| {d_kl:.3g} (tol 1e-4), max |edge rotation diff| "
+          f"{d_rot:.3g} rad (tol 4.4e-3), max |corrected pose diff| "
+          f"{d_cor:.3g} (tol 1e-2)")
+    check(d_kl <= 1e-4 and d_rot <= 4.4e-3 and d_cor <= 1e-2,
+          "LC bootstrap matches the golden file")
+
+    phase(f"7 LC mode: run_ellc_lc over {LC_FRAMES} frames of run_lc on "
+          f"cuda")
+    expect7 = LC_MODE_LAUNCHES
+    stats7 = {}
+    torch.cuda.synchronize()
+    reg_kernel.reset_launches()
+    t0 = time.perf_counter()
+    res7 = ellc_lc.run_ellc_lc(iter(lc_frames[:LC_FRAMES]), lc_cfg, dev,
+                               stats=stats7)
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t0
+    launches7 = dict(reg_kernel.launches)
+    n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
+                 == 0)
+    print(f"K3 launches {launches7}, expected {expect7}; "
+          f"{res7.num_batches} batches, {res7.num_loop_edges} loop edges, "
+          f"{len(res7.frame_ids)} corrected poses")
+    print(f"LC mode: {len(res7.frame_ids) / wall7:.3f} frames/s over "
+          f"{len(res7.frame_ids)} frames in {wall7:.3f} s (kernel builds "
+          f"done); phases (s) "
+          f"{ {k: round(v, 3) for k, v in stats7.items()} }; window "
+          f"{1e3 * stats7.get('window', 0.0) / n_push:.1f} ms a keyframe "
+          f"push over {n_push} pushes; on {gpu}")
+    check(launches7 == expect7, "K3 launch counts match the LC schedule")
+    check(res7.num_batches == 3, "three LC batches")
+    check(res7.frame_ids.tolist() == list(range(2, LC_FRAMES + 1)),
+          "frame ids 2..144 once each")
+    check(bool(np.isfinite(res7.world_poses).all()), "LC poses finite")
+    check(res7.num_loop_edges >= 1, "at least one loop edge")
+
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
+    by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
+               "lc_mode": launches7}
     print(json.dumps({"kernels": [
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items()},
          "max_abs_err": worst[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

@@ -110,7 +110,7 @@ class ELLCConfig:
     # active-region borders
     border: int = 3
 
-    # loop closure (outside the port's slice)
+    # loop closure
     loop_window: int = 20
     match_threshold: float = 0.1
     min_match_difference: int = 8
@@ -123,7 +123,7 @@ class ELLCConfig:
     trigger_loop_closure_on: float = 20.0
     trigger_loop_closure_off: float = 1.0
 
-    # rotation averaging (outside the port's slice)
+    # rotation averaging (do_sim3_refine is not ported)
     ra_batch_size: int = 4
     ra_batch_size_bootstrap: int = 10
     ra_sigma_deg: float = 5.0

@@ -29,6 +29,11 @@ def hat_so3(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee_so3(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat_so3`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _sinc_coeffs(theta2: torch.Tensor):
     """(A, B, C) = (sin t / t, (1-cos t)/t^2, (t - sin t)/t^3), with
     Taylor fallbacks near zero."""
@@ -160,6 +165,23 @@ def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp_min(n, _EPS)
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, scalar-first."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def log_quat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion -> rotation vector (..., 3), angle in (-pi, pi]."""
     s = torch.linalg.vector_norm(q[..., 1:], dim=-1)
@@ -168,3 +190,39 @@ def log_quat(q: torch.Tensor) -> torch.Tensor:
     theta = torch.where(theta < -math.pi, theta + 2.0 * math.pi, theta)
     scale = torch.where(s < _EPS, 2.0, theta / torch.clamp_min(s, _EPS))
     return q[..., 1:] * scale[..., None]
+
+
+def exp_quat(w: torch.Tensor) -> torch.Tensor:
+    """Rotation vector -> unit quaternion (..., 4), scalar-first."""
+    theta = torch.linalg.vector_norm(w, dim=-1)
+    half = theta / 2.0
+    small = theta < _EPS
+    k = torch.where(small, 0.5 - theta * theta / 48.0,
+                    torch.sin(half) / torch.where(small, 1.0, theta))
+    return torch.cat([torch.cos(half)[..., None], w * k[..., None]], dim=-1)
+
+
+def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def rotation_angle_deg(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Angular distance between two rotations in degrees
+    (CompareRotations.m:1-20 metric)."""
+    w = log_so3(Ra.transpose(-1, -2) @ Rb)
+    return torch.linalg.vector_norm(w, dim=-1) * (180.0 / math.pi)
+
+
+def view_vector(xi: torch.Tensor) -> torch.Tensor:
+    """Third row of the rotation block of exp(xi): the viewing direction of
+    the loop-closure angle gate (GlobalOptimize.cpp:436-452)."""
+    return exp_so3(xi[..., :3])[..., 2, :]

@@ -45,13 +45,13 @@ def build_pyramid(img: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
 def gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Central differences 0.5*(I[x+1]-I[x-1]) inside; one-sided
     differences without the 0.5 factor on the first/last row and column
-    (Frame.cpp:185-285)."""
-    gx = torch.cat([img[:, 1:2] - img[:, 0:1],
-                    0.5 * (img[:, 2:] - img[:, :-2]),
-                    img[:, -1:] - img[:, -2:-1]], dim=1)
-    gy = torch.cat([img[1:2, :] - img[0:1, :],
-                    0.5 * (img[2:, :] - img[:-2, :]),
-                    img[-1:, :] - img[-2:-1, :]], dim=0)
+    (Frame.cpp:185-285).  ``img`` is (..., H, W)."""
+    gx = torch.cat([img[..., 1:2] - img[..., 0:1],
+                    0.5 * (img[..., 2:] - img[..., :-2]),
+                    img[..., -1:] - img[..., -2:-1]], dim=-1)
+    gy = torch.cat([img[..., 1:2, :] - img[..., 0:1, :],
+                    0.5 * (img[..., 2:, :] - img[..., :-2, :]),
+                    img[..., -1:, :] - img[..., -2:-1, :]], dim=-2)
     return gx, gy
 
 

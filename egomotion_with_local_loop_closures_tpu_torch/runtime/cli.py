@@ -1,15 +1,16 @@
-"""Command-line entry point of the PyTorch port (GN mode).
+"""Command-line entry point of the PyTorch port.
 
 Usage:
     python -m egomotion_with_local_loop_closures_tpu_torch.runtime.cli \
-        --frames <image_dir> --out <out_dir> [--max-frames N] \
+        --frames <image_dir> --out <out_dir> [--lc] [--max-frames N] \
         [--device cuda] [--seed S] [--rows R --cols C --fx FX --fy FY]
 
-Port of the GN mode of
-``egomotion_with_local_loop_closures_tpu/runtime/cli.py``: tracks a
-directory of image frames and writes ``poses_orig.txt`` and
-``matchframes.txt`` in the reference formats.  The camera model follows
-the decoded frame size unless ``--rows``/``--cols`` pin it.
+Port of ``egomotion_with_local_loop_closures_tpu/runtime/cli.py`` for
+image directories: the default mode tracks the frames in GN mode and
+writes ``poses_orig.txt`` and ``matchframes.txt``; ``--lc`` runs the
+alternating GN / rotation-averaging mode and writes
+``poses_corrected.txt``, all in the reference formats.  The camera model
+follows the decoded frame size unless ``--rows``/``--cols`` pin it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="ELLC sequence runner (PyTorch port, GN mode)")
+        description="ELLC sequence runner (PyTorch port)")
     ap.add_argument("--frames", required=True,
                     help="directory of image frames")
     ap.add_argument("--out", required=True, help="output directory")
@@ -33,13 +34,16 @@ def main(argv=None) -> int:
     ap.add_argument("--cols", type=int, default=None)
     ap.add_argument("--fx", type=float, default=None)
     ap.add_argument("--fy", type=float, default=None)
+    ap.add_argument("--lc", action="store_true",
+                    help="alternating GN/rotation-averaging mode "
+                         "(the reference's 'ELLC LC' + MATLAB loop)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
 
     from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
-        io as ellc_io, runner)
+        ellc_lc, io as ellc_io, runner)
 
     cfg = ELLCConfig()
     overrides = {}
@@ -69,14 +73,25 @@ def main(argv=None) -> int:
         print(f"camera model set to decoded frame size {h}x{w}")
 
     os.makedirs(args.out, exist_ok=True)
+    frames = itertools.chain([first], src)
     t0 = time.perf_counter()
-    result = runner.run_sequence(itertools.chain([first], src), cfg,
-                                 args.device, out_dir=args.out,
-                                 seed=args.seed, max_frames=args.max_frames)
-    dt = time.perf_counter() - t0
-    n = len(result.frame_ids)
-    print(f"tracked {n} frames in {dt:.2f}s ({n / max(dt, 1e-9):.2f} fps) "
-          f"on {args.device}")
+    if args.lc:
+        result = ellc_lc.run_ellc_lc(frames, cfg, args.device,
+                                     out_dir=args.out, seed=args.seed,
+                                     max_frames=args.max_frames)
+        dt = time.perf_counter() - t0
+        n = len(result.frame_ids)
+        print(f"LC mode: {n} corrected poses, {result.num_batches} batches, "
+              f"{result.num_loop_edges} loop edges in {dt:.2f}s "
+              f"({n / max(dt, 1e-9):.2f} fps) on {args.device}")
+    else:
+        result = runner.run_sequence(frames, cfg, args.device,
+                                     out_dir=args.out, seed=args.seed,
+                                     max_frames=args.max_frames)
+        dt = time.perf_counter() - t0
+        n = len(result.frame_ids)
+        print(f"tracked {n} frames in {dt:.2f}s ({n / max(dt, 1e-9):.2f} "
+              f"fps) on {args.device}")
     print(f"outputs written to {args.out}")
     return 0
 

@@ -20,12 +20,18 @@ reads none of these config fields: ``use_window_warp``, ``warp_window``,
 ``stereo_pack_u8``, ``use_pallas_reg``.  The JAX settings that compute the
 same thing are ``config.PARITY_OVERRIDES``.
 
-Outside the port's slice, and refused with ``NotImplementedError``: loop
-closure (``do_loop_closure``), connection recovery
-(``restore_connection``), undistortion (``do_undistortion``) and the
-replay / RA-rotation initialization.  The keyframe snapshots and GN
-weight accumulation that only loop closure reads (``KeyframeSnapshot``,
-``Keyframe.weight_acc``/``weight_count``) are left out.
+With ``do_loop_closure`` each tracked frame also accumulates its GN
+weight images into the keyframe (``Keyframe.weight_acc``), and
+:func:`keyframe_step` returns the finalized old keyframe as a
+:class:`KeyframeSnapshot` for the loop window.  The LC replay tracks with
+``cfg.max_iters_replay`` and seeds each frame's rotation from the
+rotation-averaged world pose (``init_rotation``).
+
+Outside the port's slice, and refused with ``NotImplementedError``:
+connection recovery (``restore_connection``) and undistortion
+(``do_undistortion``).  The JAX package's masked single-program intervals
+and chunked ``process_intervals`` exist to bound jit compiles; here the
+callers run K-1-frame, K-frame and tail intervals directly.
 """
 
 from __future__ import annotations
@@ -57,9 +63,26 @@ class Keyframe:
     maxgrad: torch.Tensor               # 3x3-dilated max gradient, level 0
     world_pose: torch.Tensor            # (6,) poseWrtWorld of this KF
     rescale: torch.Tensor               # scalar rescaleFactor
+    # GN weight images accumulated per level for the loop-closure rematch
+    # (saveWeights, PixelWisePyramid.cpp:544-551); empty unless the loop
+    # window is on
+    weight_acc: Tuple[torch.Tensor, ...]
+    weight_count: torch.Tensor          # scalar
 
     def replace(self, **kw) -> "Keyframe":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyframeSnapshot:
+    """A finalized keyframe as pushed to the loop-closure window
+    (globalOptimize::pushToArray, GlobalOptimize.cpp:178-223)."""
+    image: torch.Tensor
+    kf_levels: Tuple[alignment.KeyframeLevel, ...]
+    weight_levels: Tuple[torch.Tensor, ...]   # averaged (finaliseWeights)
+    world_pose: torch.Tensor
+    rescale: torch.Tensor
+    seeds: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +112,7 @@ class FrameOutput:
 
 def check_supported(cfg: ELLCConfig) -> None:
     """Refuse the features outside the port's slice."""
-    for name in ("do_loop_closure", "restore_connection", "do_undistortion"):
+    for name in ("restore_connection", "do_undistortion"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"{name}=True is not ported to PyTorch yet")
@@ -100,6 +123,12 @@ def _image(image, device) -> torch.Tensor:
     if isinstance(image, torch.Tensor):
         return image.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(image, dtype=np.float32), device=device)
+
+
+def _needs_window(cfg: ELLCConfig) -> bool:
+    """Keyframe snapshots and accumulated GN weights feed the loop window
+    (FLAG_DO_LOOP_CLOSURE)."""
+    return cfg.do_loop_closure
 
 
 def _kf_levels(kf: Keyframe) -> Tuple[alignment.KeyframeLevel, ...]:
@@ -121,11 +150,14 @@ def make_keyframe(image: torch.Tensor, st: dstate.DepthMapState,
                   world_pose: torch.Tensor, rescale: torch.Tensor,
                   cfg: ELLCConfig) -> Tuple[Keyframe, dstate.DepthMapState]:
     gx, gy = pyramid.gradients(image)
-    kf = Keyframe(images=tuple(pyramid.build_pyramid(image, cfg.num_levels)),
-                  depths=(), vars_=(), gradx=gx, grady=gy,
+    imgs = tuple(pyramid.build_pyramid(image, cfg.num_levels))
+    kf = Keyframe(images=imgs, depths=(), vars_=(), gradx=gx, grady=gy,
                   maxgrad=pyramid.max_abs_gradient(gx, gy),
                   world_pose=world_pose.to(torch.float32),
-                  rescale=rescale.to(torch.float32))
+                  rescale=rescale.to(torch.float32),
+                  weight_acc=(tuple(torch.zeros_like(i) for i in imgs)
+                              if _needs_window(cfg) else ()),
+                  weight_count=torch.zeros((), device=image.device))
     return _refresh_kf_depth(kf, st, cfg)
 
 
@@ -168,19 +200,46 @@ def init_from_depth(first_image, depth, var, world_pose, cfg: ELLCConfig,
     return _fresh_state(kf, st, device)
 
 
-def _track(state: PipelineState, image: torch.Tensor, cfg: ELLCConfig):
+def _track(state: PipelineState, image: torch.Tensor, cfg: ELLCConfig,
+           replay: bool, init_rotation=None):
     """GetImagePoseEstimate from the previous frame's pose (constant
-    position model, ImageFunc.cpp:97-108)."""
+    position model, ImageFunc.cpp:97-108), or with the rotation of an
+    RA-corrected world pose and the translation of t-1
+    (ImageFunc.cpp:109-138).  The replay uses ``cfg.max_iters_replay``."""
+    pose0 = state.prev_wrt_kf
+    if init_rotation is not None:
+        rot_wrt_kf = lie.relative(_image(init_rotation, state.device),
+                                  state.kf.world_pose)
+        pose0 = torch.cat([rot_wrt_kf[:3], pose0[3:]])
     cur = alignment.make_current_levels(
         pyramid.build_pyramid(image, cfg.num_levels))
-    return alignment.align(_kf_levels(state.kf), cur, state.prev_wrt_kf, cfg)
+    iters = cfg.max_iters_replay if replay else cfg.max_iters
+    pose, diag = alignment.align(_kf_levels(state.kf), cur, pose0, cfg,
+                                 iters)
+    return pose, diag, cur
 
 
-def _check_step(cfg: ELLCConfig, replay: bool, init_rotation) -> None:
-    check_supported(cfg)
-    if replay or init_rotation is not None:
-        raise NotImplementedError("replay and RA-rotation initialization "
-                                  "are not ported to PyTorch yet")
+def _accumulate_weights(kf: Keyframe, cur, pose: torch.Tensor,
+                        cfg: ELLCConfig) -> Keyframe:
+    """Add the per-level GN weight images at the tracked pose
+    (saveWeights with useAverageWeights=true, PixelWisePyramid.cpp:544-551;
+    all levels are evaluated at the final pose, as in the JAX package)."""
+    kf_levels = _kf_levels(kf)
+    acc = tuple(a + alignment.weight_image(kf_levels[l], cur[l], pose, l,
+                                           cfg)
+                for l, a in enumerate(kf.weight_acc))
+    return kf.replace(weight_acc=acc, weight_count=kf.weight_count + 1.0)
+
+
+def finalize_snapshot(state: PipelineState) -> KeyframeSnapshot:
+    """Average the accumulated weights (finaliseWeights, Frame.cpp:678-695)
+    and package the active keyframe for the loop-closure window."""
+    kf = state.kf
+    n = torch.clamp_min(kf.weight_count, 1.0)
+    return KeyframeSnapshot(image=kf.images[0], kf_levels=_kf_levels(kf),
+                            weight_levels=tuple(a / n for a in kf.weight_acc),
+                            world_pose=kf.world_pose, rescale=kf.rescale,
+                            seeds=dstate.seeds_percent(state.depth))
 
 
 def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
@@ -188,10 +247,12 @@ def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
                       ) -> Tuple[PipelineState, FrameOutput]:
     """One non-keyframe frame: track, then refine the KF depth map
     (main.cpp:330, 499-502)."""
-    _check_step(cfg, replay, init_rotation)
+    check_supported(cfg)
     image = _image(image, state.device)
-    pose, diag = _track(state, image, cfg)
+    pose, diag, cur = _track(state, image, cfg, replay, init_rotation)
     kf = state.kf
+    if _needs_window(cfg):
+        kf = _accumulate_weights(kf, cur, pose, cfg)
     out = stereo.observe(state.depth, kf.images[0], kf.gradx, kf.grady,
                          kf.maxgrad, image, pose, cfg)
     st = reg_kernel.do_regularization(out.state, kf.maxgrad, cfg)
@@ -207,20 +268,29 @@ def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
 
 def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
                   replay: bool = False, init_rotation=None
-                  ) -> Tuple[PipelineState, FrameOutput]:
+                  ) -> Tuple[PipelineState, FrameOutput,
+                             Optional[KeyframeSnapshot]]:
     """Keyframe propagation (main.cpp:404-495 + createKeyFrame,
     DepthPropagation.cpp:1758-1794): track the new frame, finalize the old
     KF's map, reproject it into the new KF, regularize, renormalize scale,
     and swap keyframes.  The output line reports the OLD keyframe's
-    rescale (main.cpp writes the pose before createKeyFrame)."""
-    _check_step(cfg, replay, init_rotation)
+    rescale (main.cpp writes the pose before createKeyFrame).  With the
+    loop window on, also returns the old keyframe's snapshot, taken after
+    its final regularization with this frame's weights accumulated (else
+    None)."""
+    check_supported(cfg)
     image = _image(image, state.device)
-    pose, diag = _track(state, image, cfg)
+    pose, diag, cur = _track(state, image, cfg, replay, init_rotation)
     kf_old = state.kf
+    if _needs_window(cfg):
+        kf_old = _accumulate_weights(kf_old, cur, pose, cfg)
 
     # finaliseKeyframe: one more doRegularization (main.cpp:436)
     st = reg_kernel.do_regularization(state.depth, kf_old.maxgrad, cfg)
     kf_old, st = _refresh_kf_depth(kf_old, st, cfg)
+    snapshot = finalize_snapshot(PipelineState(
+        kf=kf_old, depth=st, prev_wrt_kf=pose,
+        global_scale=state.global_scale)) if _needs_window(cfg) else None
 
     gx, gy = pyramid.gradients(image)
     mg = pyramid.max_abs_gradient(gx, gy)
@@ -239,7 +309,7 @@ def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
                       weighted_pose=diag.weighted_pose,
                       valid_fraction=diag.valid_fraction,
                       oow_fraction=diag.oow_fraction)
-    return new_state, out
+    return new_state, out, snapshot
 
 
 def stack_outputs(outs) -> FrameOutput:
@@ -249,16 +319,24 @@ def stack_outputs(outs) -> FrameOutput:
         for f in dataclasses.fields(FrameOutput)})
 
 
-def process_interval(state: PipelineState, images, cfg: ELLCConfig
-                     ) -> Tuple[PipelineState, FrameOutput]:
+def process_interval(state: PipelineState, images, cfg: ELLCConfig,
+                     replay: bool = False, init_rotations=None
+                     ) -> Tuple[PipelineState, FrameOutput,
+                                Optional[KeyframeSnapshot]]:
     """One keyframe interval: track+refine over all frames but the last,
     then the keyframe step on the last.  ``images`` is a sequence of
     (H, W) frames (K of them, or K-1 for a sequence's first interval);
-    returns the new state and the stacked per-frame outputs."""
+    ``init_rotations``, if given, holds one RA-corrected world pose per
+    frame (the LC replay).  Returns the new state, the stacked per-frame
+    outputs and the old keyframe's snapshot (None without the loop
+    window)."""
+    rots = ([None] * len(images) if init_rotations is None
+            else list(init_rotations))
     outs = []
-    for img in images[:-1]:
-        state, out = track_refine_step(state, img, cfg)
+    for img, rot in zip(images[:-1], rots[:-1]):
+        state, out = track_refine_step(state, img, cfg, replay, rot)
         outs.append(out)
-    state, out = keyframe_step(state, images[-1], cfg)
+    state, out, snapshot = keyframe_step(state, images[-1], cfg, replay,
+                                         rots[-1])
     outs.append(out)
-    return state, stack_outputs(outs)
+    return state, stack_outputs(outs), snapshot

@@ -2,10 +2,13 @@
 reference-format output files.
 
 Port of ``run_sequence`` from
-``egomotion_with_local_loop_closures_tpu/runtime/runner.py`` in GN mode
-(the reference binary's default mode, ``src/main.cpp:76-79``): per-frame
-world poses go to ``poses_orig.txt`` and per-keyframe odometry edges to
-``matchframes.txt``.
+``egomotion_with_local_loop_closures_tpu/runtime/runner.py`` (the
+reference binary's default mode, ``src/main.cpp:76-79``): per-frame world
+poses go to ``poses_orig.txt`` and per-keyframe odometry edges to
+``matchframes.txt``.  With ``cfg.do_loop_closure`` each finalized
+keyframe is pushed to the loop window and the loop-closure edges go to
+``matchframes_globalopt.txt``.  The alternating GN / rotation-averaging
+mode lives in ``runtime/ellc_lc.py``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ def run_sequence(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
     source as the JAX runner does.  With ``cfg.bootstrap_rng == "jax"`` the
     random depth init is drawn from a CPU ``torch.Generator`` seeded with
     ``seed``; it cannot reproduce the JAX package's bits for that seed.
-    Checkpoints are not ported yet."""
+    With ``cfg.do_loop_closure`` the loop edges are returned in
+    ``extra["loop_edges"]``.  Checkpoints are not ported yet."""
     if checkpoint_dir is not None:
         raise NotImplementedError("checkpoints are not ported to PyTorch yet")
     pipeline.check_supported(cfg)
@@ -60,11 +64,18 @@ def run_sequence(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
     gen = torch.Generator().manual_seed(seed)
     state = pipeline.init_pipeline(next(it), cfg, device, generator=gen)
 
-    pose_w = match_w = None
+    pose_w = match_w = loop_w = closer = None
     if out_dir:
         pose_w = ellc_io.PoseWriter(os.path.join(out_dir, "poses_orig.txt"))
         match_w = ellc_io.PoseWriter(os.path.join(out_dir, "matchframes.txt"),
                                      kind="match")
+    if cfg.do_loop_closure:
+        from egomotion_with_local_loop_closures_tpu_torch.loop import closure
+        closer = closure.LoopCloser(cfg)
+        if out_dir:
+            loop_w = ellc_io.PoseWriter(
+                os.path.join(out_dir, "matchframes_globalopt.txt"),
+                kind="match")
 
     ids: List[int] = []
     kfids: List[int] = []
@@ -116,7 +127,19 @@ def run_sequence(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
             if not buf:
                 break
             if len(buf) == want:
-                state, outs = pipeline.process_interval(state, buf, cfg)
+                state, outs, snap = pipeline.process_interval(state, buf, cfg)
+                if closer is not None:
+                    # push the finalized OLD keyframe (pushToArray,
+                    # main.cpp:452-465) and write its loop edges
+                    edges = closer.push_keyframe(
+                        kf_id, snap.image, snap.kf_levels,
+                        snap.weight_levels, snap.world_pose, snap.rescale,
+                        snap.seeds)
+                    for e in (edges if loop_w else ()):
+                        loop_w.write(e.frame_id, e.matched_kf_id,
+                                     e.pose_wrt_matched, e.rescale, e.seeds,
+                                     extras=(e.match_value, e.rms_error,
+                                             e.view_angle))
                 emit(outs, kf_eligible=True)
             else:
                 outs = []
@@ -125,13 +148,15 @@ def run_sequence(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
                     outs.append(o)
                 emit(pipeline.stack_outputs(outs), kf_eligible=False)
     finally:
-        for w in (pose_w, match_w):
+        for w in (pose_w, match_w, loop_w):
             if w:
                 w.close()
 
+    extra = {"block_times": block_times}
+    if closer is not None:
+        extra["loop_edges"] = closer.edges
     return RunResult(world_poses=np.asarray(poses),
                      frame_ids=np.asarray(ids, dtype=np.int64),
                      kf_ids=np.asarray(kfids, dtype=np.int64),
                      rescales=np.asarray(rescales),
-                     seeds=np.asarray(seeds_l),
-                     extra={"block_times": block_times})
+                     seeds=np.asarray(seeds_l), extra=extra)

@@ -14,8 +14,14 @@ Port of the gather path (``window=None``) of
   kept on the device with ``torch.where``, so :func:`align` never waits
   for the host.
 
-The linearize-and-reduce of :func:`_gn_quantities` is plain PyTorch here;
-it is the next kernel to write by hand (K1).
+The loop-closure rematch uses the constant-weight (inverse-compositional)
+aligner, :func:`align_const_weight`, batched over a leading candidate
+axis in place of the JAX package's ``vmap``.
+
+The linearize-and-reduce of :func:`_gn_quantities` (K1) and the
+constant-weight iteration of :func:`gn_level_const_weight` (K5, the same
+warp and reduction with fixed weights) are plain PyTorch here; they are
+kernels to write by hand once the port has a benchmark cell.
 """
 
 from __future__ import annotations
@@ -59,10 +65,11 @@ def make_current_levels(images: Sequence[torch.Tensor]
     return tuple(CurrentLevel(img, *pyramid.gradients(img)) for img in images)
 
 
-def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
-                   intr: Tuple[float, float, float, float],
-                   cfg: ELLCConfig):
-    """One linearization: returns (H 6x6, g 6, energy, valid_count)."""
+def _pixel_terms(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
+                 intr: Tuple[float, float, float, float], cfg: ELLCConfig):
+    """Warp every template pixel into the current frame at ``pose``:
+    returns the current gradients sampled there, the residual, the GN
+    weight, the used-pixel mask and the template terms (u, v, 1/d)."""
     fx, fy, cx, cy = intr
     Hh, Ww = kf.image.shape
     x, y = camera.pixel_grid(Hh, Ww, device=kf.image.device)
@@ -77,19 +84,9 @@ def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
     gradx = interp.bilinear_fill(cur.gradx, wx, wy)
     grady = interp.bilinear_fill(cur.grady, wx, wy)
 
-    # steepest-descent rows at the template pixel (u, v) = (x-cx, y-cy)
     u = x - cx
     v = y - cy
-    d = torch.where(mask, kf.depth, 1.0)
-    inv_d = 1.0 / d
-    sd0 = gradx * (-(v * u) / fy) + grady * (-(fy + (v * v) / fy))
-    sd1 = gradx * (fx + (u * u) / fx) + grady * ((v * u) / fx)
-    sd2 = gradx * (-(fx * v) / fy) + grady * ((fy * u) / fx)
-    sd3 = gradx * (fx * inv_d)
-    sd4 = grady * (fy * inv_d)
-    sd5 = gradx * (-u * inv_d) + grady * (-v * inv_d)
-    J = torch.stack([sd0, sd1, sd2, sd3, sd4, sd5], dim=-1).reshape(-1, 6)
-
+    inv_d = 1.0 / torch.where(mask, kf.depth, 1.0)
     residual = torch.where(in_bounds, warped - kf.image, 0.0)
 
     # variance-propagated weights (PixelWisePyramid.cpp:341-358)
@@ -108,8 +105,31 @@ def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
     wh = torch.where(weighted_rp < half_huber, 1.0,
                      half_huber / torch.clamp_min(weighted_rp, 1e-12))
     used = mask & in_bounds
-    weight = torch.where(used, wh * w_p, 0.0).reshape(-1)
+    weight = torch.where(used, wh * w_p, 0.0)
+    return gradx, grady, residual, weight, used, (u, v, inv_d)
 
+
+def _steepest_descent(gradx, grady, u, v, inv_d, fx, fy) -> torch.Tensor:
+    """The six steepest-descent rows at the template pixel (u, v) =
+    (x-cx, y-cy), (..., H, W, 6) (PixelWisePyramid.cpp:296-320)."""
+    sd0 = gradx * (-(v * u) / fy) + grady * (-(fy + (v * v) / fy))
+    sd1 = gradx * (fx + (u * u) / fx) + grady * ((v * u) / fx)
+    sd2 = gradx * (-(fx * v) / fy) + grady * ((fy * u) / fx)
+    sd3 = gradx * (fx * inv_d)
+    sd4 = grady * (fy * inv_d)
+    sd5 = gradx * (-u * inv_d) + grady * (-v * inv_d)
+    return torch.stack([sd0, sd1, sd2, sd3, sd4, sd5], dim=-1)
+
+
+def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
+                   intr: Tuple[float, float, float, float],
+                   cfg: ELLCConfig):
+    """One linearization: returns (H 6x6, g 6, energy, valid_count)."""
+    fx, fy = intr[0], intr[1]
+    gradx, grady, residual, weight, used, (u, v, inv_d) = _pixel_terms(
+        kf, cur, pose, intr, cfg)
+    J = _steepest_descent(gradx, grady, u, v, inv_d, fx, fy).reshape(-1, 6)
+    weight = weight.reshape(-1)
     r = residual.reshape(-1)
     Jw = J * weight[:, None]
     Hmat = Jw.T @ J
@@ -117,6 +137,106 @@ def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
     energy = torch.sum(weight * r * r)
     valid = torch.sum(used.to(torch.float32))
     return Hmat, g, energy, valid
+
+
+def weight_image(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
+                 level: int, cfg: ELLCConfig) -> torch.Tensor:
+    """The per-template-pixel GN weight image at ``pose``: what the
+    reference saves at the final iteration of each level for the
+    constant-weight rematch (PixelWisePyramid::saveWeights,
+    PixelWisePyramid.cpp:544-551)."""
+    return _pixel_terms(kf, cur, pose, cfg.level_intrinsics(level), cfg)[3]
+
+
+def _template_jacobian(kf: KeyframeLevel, level: int, cfg: ELLCConfig
+                       ) -> torch.Tensor:
+    """Steepest-descent rows from the TEMPLATE (keyframe) gradients and
+    depth, zero where the depth is invalid: the inverse-compositional
+    precomputation (PixelWisePyramid.cpp:561-680).  ``kf`` fields are
+    (..., H, W); returns (..., H, W, 6)."""
+    fx, fy, cx, cy = cfg.level_intrinsics(level)
+    Hh, Ww = kf.image.shape[-2:]
+    x, y = camera.pixel_grid(Hh, Ww, device=kf.image.device)
+    mask = kf.depth > 0.0
+    gradx, grady = pyramid.gradients(kf.image)
+    inv_d = 1.0 / torch.where(mask, kf.depth, 1.0)
+    J = _steepest_descent(gradx, grady, x - cx, y - cy, inv_d, fx, fy)
+    return torch.where(mask[..., None], J, 0.0)
+
+
+def gn_level_const_weight(kf: KeyframeLevel, weights: torch.Tensor,
+                          cur: CurrentLevel, pose0: torch.Tensor,
+                          level: int, cfg: ELLCConfig, num_iters: int):
+    """Inverse-compositional constant-weight GN at one level for B
+    candidates at once (PixelWisePyramid.cpp:917-974): J and the 6x6
+    Hessian are precomputed from each template with its saved weights;
+    each iteration only warps and reduces J^T w r.
+
+    ``kf`` fields and ``weights`` are (B, H, W), ``pose0`` is (B, 6); the
+    current level is shared.  The freeze mask is per candidate, so one
+    candidate's convergence never stops another, and it stays on the
+    device.  Returns (pose (B, 6), weighted_pose (B,), iters (B,))."""
+    fx, fy, cx, cy = cfg.level_intrinsics(level)
+    B = pose0.shape[0]
+    dev, dt = pose0.device, pose0.dtype
+    term_w = torch.tensor(cfg.termination_weights, dtype=dt, device=dev)
+    J = _template_jacobian(kf, level, cfg).reshape(B, -1, 6)
+    w = weights.reshape(B, -1)
+    Hmat = (J * w[..., None]).transpose(1, 2) @ J
+    Hinv_ok = torch.isfinite(Hmat).all(dim=-1).all(dim=-1)
+    Hmat = Hmat + 1e-12 * torch.eye(6, dtype=dt, device=dev)
+    Hh, Ww = kf.image.shape[-2:]
+    x, y = camera.pixel_grid(Hh, Ww, device=dev)
+    mask = kf.depth > 0.0
+    P = camera.backproject(x, y, kf.depth, fx, fy, cx, cy).reshape(B, -1, 3)
+
+    pose = pose0
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    wp_last = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(num_iters):
+        T = lie.exp_se3(pose)
+        Pt = (P @ T[:, :3, :3].transpose(1, 2)
+              + T[:, None, :3, 3]).reshape(B, Hh, Ww, 3)
+        wx, wy, _ = camera.project(Pt, fx, fy, cx, cy)
+        warped, in_bounds = interp.bilinear(cur.image, wx, wy)
+        residual = torch.where(in_bounds & mask, warped - kf.image, 0.0)
+        g = (J.transpose(1, 2) @ (residual.reshape(B, -1) * w)[..., None]
+             ).squeeze(-1)
+        delta = -linear.solve_spd(Hmat, g)
+        # zero the update on a singular or near-singular system (OpenCV
+        # inv() semantics, PixelWisePyramid.cpp:939)
+        ok = (torch.isfinite(delta).all(dim=-1) & Hinv_ok
+              & (torch.abs(delta).amax(dim=-1) < 1e3))
+        delta = torch.where(ok[:, None], delta, 0.0)
+        new_pose = lie.compose(delta, pose)
+        wp = torch.sum(torch.abs(delta * term_w), dim=-1)
+        pose = torch.where(done[:, None], pose, new_pose)
+        wp_last = torch.where(done, wp_last, wp)
+        iters = torch.where(done, iters, iters + 1)
+        done = done | (wp < 1.0) | ~ok
+    return pose, wp_last, iters
+
+
+def align_const_weight(kf_levels: Tuple[KeyframeLevel, ...],
+                       weight_levels: Tuple[torch.Tensor, ...],
+                       cur_levels: Tuple[CurrentLevel, ...],
+                       pose0: torch.Tensor,
+                       cfg: ELLCConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse-to-fine constant-weight alignment of the current frame
+    against B keyframe candidates (the loop-closure rematch path of
+    GetImagePoseEstimate, ImageFunc.cpp:241-243).  Each keyframe level and
+    weight image carries a leading candidate axis B, ``pose0`` is (B, 6)
+    and the current levels are shared.  Returns (poses (B, 6),
+    weighted_pose (B,))."""
+    pose = pose0
+    wp = None
+    for level in range(cfg.num_levels - 1, -1, -1):
+        pose, wp, _ = gn_level_const_weight(
+            kf_levels[level], weight_levels[level], cur_levels[level],
+            pose, level, cfg, int(cfg.max_iters[level]))
+    return pose, wp
 
 
 def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,

@@ -120,3 +120,32 @@ def test_solve_spd_matches_jax_and_flags_indefinite():
     xj = np.asarray(jlinear.solve_spd(jnp.asarray(bad), jnp.asarray(b)))
     assert np.isnan(x[:2]).all() and not np.isfinite(xj[:2]).any()
     assert np.isfinite(x[2:]).all()
+
+
+def quats(seed, n=64):
+    """Random unit quaternions, scalar first, either sign."""
+    q = np.random.default_rng(seed).normal(size=(n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("name", ["quat_mul", "quat_conj", "exp_quat",
+                                  "matrix_from_quat", "vee_so3",
+                                  "view_vector", "rotation_angle_deg"])
+def test_quaternion_and_rotation_helpers_match_jax(name):
+    """The Lie helpers of loop closure and rotation averaging, at 1e-6
+    (rotation_angle_deg in degrees at 1e-4: an arccos-free log of a
+    near-identity product, scaled by 57)."""
+    a, b, xi = quats(8), quats(9), twists(10)
+    R1 = np.array(jlie.exp_so3(jnp.asarray(xi[:, :3])))
+    R2 = np.array(jlie.exp_so3(jnp.asarray(twists(11)[:, 3:])))
+    args = {"quat_mul": (a, b), "quat_conj": (a,), "exp_quat": (xi[:, :3],),
+            "matrix_from_quat": (a,), "vee_so3": (R1 - R1.transpose(0, 2, 1),),
+            "view_vector": (xi,), "rotation_angle_deg": (R1, R2)}[name]
+    close(getattr(jlie, name)(*map(jnp.asarray, args)),
+          getattr(lie, name)(*map(torch.as_tensor, args)),
+          atol=1e-4 if name == "rotation_angle_deg" else 1e-6)
+
+
+def test_vee_inverts_hat():
+    w = torch.as_tensor(twists(12)[:, :3])
+    assert torch.equal(lie.vee_so3(lie.hat_so3(w)), w)

@@ -82,7 +82,7 @@ def test_two_intervals_match_jax(frames, jax_run):
     states, outs = jax_run
     ps = pipeline.init_pipeline(frames[0], CFG, "cpu")
     for lo, jo in zip((0, 8), outs):
-        ps, po = pipeline.process_interval(ps, frames[lo:lo + 8], CFG)
+        ps, po, _ = pipeline.process_interval(ps, frames[lo:lo + 8], CFG)
         assert_outputs_close(jo, po)
     jtree, ptree = convert.as_tree(states[-1]), convert.to_numpy(ps)
     assert np.mean(jtree["depth"]["valid"] != ptree["depth"]["valid"]) < 0.02
@@ -111,7 +111,7 @@ def test_convert_round_trip_and_shared_start(frames, jax_run):
             np.testing.assert_array_equal(tree["kf"][k], v)
     assert torch.equal(convert.to_port(tree["depth"], "cpu").valid,
                        ps.depth.valid)
-    ps, po = pipeline.process_interval(ps, frames[8:16], CFG)
+    ps, po, _ = pipeline.process_interval(ps, frames[8:16], CFG)
     assert_outputs_close(outs[1], po)
 
 
@@ -156,8 +156,7 @@ def test_run_sequence_writes_reference_format(frames, tmp_path):
     assert len(res.extra["block_times"]) == 2
 
 
-@pytest.mark.parametrize("field", ["do_loop_closure", "restore_connection",
-                                   "do_undistortion"])
+@pytest.mark.parametrize("field", ["restore_connection", "do_undistortion"])
 def test_features_outside_the_slice_raise(frames, field):
     with pytest.raises(NotImplementedError):
         runner.run_sequence(iter(frames[:3]), CFG.replace(**{field: True}),
@@ -165,14 +164,55 @@ def test_features_outside_the_slice_raise(frames, field):
 
 
 def test_replay_and_checkpoints_raise(frames):
-    st = pipeline.init_pipeline(frames[0], CFG, "cpu")
-    with pytest.raises(NotImplementedError):
-        pipeline.track_refine_step(st, frames[1], CFG, replay=True)
-    with pytest.raises(NotImplementedError):
-        pipeline.keyframe_step(st, frames[1], CFG, init_rotation=np.zeros(6))
+    """Replay runs now (test_replay_step_matches_jax); checkpoints are
+    still outside the port's slice."""
     with pytest.raises(NotImplementedError):
         runner.run_sequence(iter(frames[:3]), CFG, "cpu",
                             checkpoint_dir="ckpt")
+
+
+def test_replay_step_matches_jax(frames, jax_run):
+    """A replayed frame (the {5,1,1,1} schedule) whose rotation is seeded
+    from a corrected world pose, from the same converted state."""
+    states, outs = jax_run
+    rot = np.asarray(outs[0].pose_wrt_world[-1]) + np.asarray(
+        [0.004, -0.003, 0.002, 0, 0, 0], np.float32)
+    js, jo = jpipe.track_refine_step(states[1], jnp.asarray(frames[9]), JCFG,
+                                     replay=True,
+                                     init_rotation=jnp.asarray(rot))
+    ps, po = pipeline.track_refine_step(
+        convert.to_port(convert.as_tree(states[1]), "cpu"), frames[9], CFG,
+        replay=True, init_rotation=rot)
+    np.testing.assert_allclose(np.asarray(jo.pose_wrt_world),
+                               po.pose_wrt_world.numpy(), atol=POSE_TOL)
+    assert float(po.seeds) == pytest.approx(float(jo.seeds), abs=SEEDS_TOL)
+    # the seeded rotation changed the start, so the result differs from
+    # the unseeded step's
+    _, plain = pipeline.track_refine_step(
+        convert.to_port(convert.as_tree(states[1]), "cpu"), frames[9], CFG,
+        replay=True)
+    assert not torch.equal(plain.pose_wrt_kf, po.pose_wrt_kf)
+
+
+def test_loop_window_state_converts_both_ways(frames):
+    """With loop closure on, the keyframe carries per-level weight
+    accumulators; they survive the trip JAX -> port -> numpy, and one
+    tracked frame accumulates the same weights in both packages."""
+    jcfg, cfg = (c.replace(do_loop_closure=True) for c in (JCFG, CFG))
+    js = jpipe.init_pipeline(jnp.asarray(frames[0]), jax.random.PRNGKey(0),
+                             jcfg)
+    tree = convert.as_tree(js)
+    ps = convert.to_port(tree, "cpu")
+    back = convert.to_numpy(ps)
+    assert len(back["kf"]["weight_acc"]) == cfg.num_levels
+    for a, b in zip(tree["kf"]["weight_acc"], back["kf"]["weight_acc"]):
+        np.testing.assert_array_equal(a, b)
+    ps, _ = pipeline.track_refine_step(ps, frames[1], cfg)
+    assert float(ps.kf.weight_count) == 1.0
+    fresh = pipeline.init_pipeline(frames[0], cfg, "cpu")
+    assert float(fresh.kf.weight_count) == 0.0
+    assert all(float(a.abs().sum()) == 0.0 for a in fresh.kf.weight_acc)
+    assert float(ps.kf.weight_acc[0].sum()) > 0.0
 
 
 def test_cli_on_image_directory(frames, tmp_path, capsys):
@@ -191,7 +231,12 @@ def test_cli_on_image_directory(frames, tmp_path, capsys):
 def test_runner_imports_without_jax():
     code = ("import sys, egomotion_with_local_loop_closures_tpu_torch."
             "runtime.runner, egomotion_with_local_loop_closures_tpu_torch."
-            "convert; print(sorted(m for m in sys.modules if m == 'jax' or "
+            "runtime.ellc_lc, egomotion_with_local_loop_closures_tpu_torch."
+            "runtime.cli, egomotion_with_local_loop_closures_tpu_torch."
+            "loop.closure, egomotion_with_local_loop_closures_tpu_torch."
+            "graph.rotation_averaging, egomotion_with_local_loop_closures_"
+            "tpu_torch.convert; print(sorted(m for m in sys.modules if m == "
+            "'jax' or "
             "m.startswith(('jax.', 'egomotion_with_local_loop_closures_tpu.'"
             ")) or m == 'egomotion_with_local_loop_closures_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from egomotion_with_local_loop_closures_tpu.config import ELLCConfig as JCfg
+from egomotion_with_local_loop_closures_tpu.geom import lie as jlie
 from egomotion_with_local_loop_closures_tpu.image import pyramid as jpyr
 from egomotion_with_local_loop_closures_tpu.track import alignment as jalign
 from egomotion_with_local_loop_closures_tpu.utils import synthetic
@@ -102,3 +103,121 @@ def test_singular_system_gives_zero_update(pair):
     # compose(0, pose) = log(exp(pose)): the pose up to float rounding
     torch.testing.assert_close(pose, pose0, atol=1e-6, rtol=0)
     assert int(iters) == 1 and float(wp) == 0.0
+
+
+# --- the constant-weight (inverse-compositional) rematch aligner (K5) ---
+# Weight images and template Jacobians are per-pixel closed forms and
+# agree to float32 rounding (rtol 1e-5 of each level's largest value);
+# rematched poses after 32 iterations agree to 1e-4 per twist component.
+# The batched calls stack three distinct keyframes (rendered at their own
+# poses, each with its own holes and saved weights), so a candidate that
+# read another's template, Jacobian, Hessian or points would disagree with
+# its own JAX call.
+
+KF_POSES = np.stack([np.zeros(6, np.float32),
+                     [-0.004, 0.003, 0.0, -0.01, 0.012, 0.0],
+                     [0.002, 0.006, -0.003, 0.02, 0.004, -0.006]]
+                    ).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def candidates(pair):
+    """Three keyframes against the pair's current frame: the pair's own
+    and two rendered elsewhere.  Returns the JAX and port keyframe levels
+    and weight images (saved at each keyframe's true relative pose), the
+    true relative poses, and starting poses: zero, halfway, and the
+    solution itself, which converges first."""
+    kf_j0, cur_j, kf_t0, cur_t = pair
+    scene = synthetic.make_room_scene(seed=0)
+    fx, fy, cx, cy = JCFG.level_intrinsics(0)
+    kfs_j, kfs_t = [kf_j0], [kf_t0]
+    for k in (1, 2):
+        img, depth = synthetic.render(scene, jnp.asarray(KF_POSES[k]),
+                                      JCFG.rows, JCFG.cols, fx, fy, cx, cy)
+        img = np.round(np.asarray(img)).astype(np.float32)
+        rng = np.random.default_rng(k)
+        hole = rng.uniform(size=img.shape) < 0.2
+        depth = np.where(hole, 0.0, np.asarray(depth)).astype(np.float32)
+        var = np.where(hole, -1.0, 0.0005 + 0.002 * rng.uniform(
+            size=img.shape)).astype(np.float32)
+        kf_j = jalign.make_keyframe_levels(
+            jnp.asarray(img), jnp.asarray(depth), jnp.asarray(var), JCFG)
+        kfs_j.append(kf_j)
+        kfs_t.append(tuple(alignment.KeyframeLevel(
+            *(torch.as_tensor(np.array(a)) for a in lv)) for lv in kf_j))
+    rels = np.stack([np.asarray(jlie.relative(jnp.asarray(TRUE),
+                                              jnp.asarray(P)))
+                     for P in KF_POSES])
+    ws_j = [[jalign.weight_image(kf_j[l], cur_j[l], jnp.asarray(r), l, JCFG)
+             for l in range(4)] for kf_j, r in zip(kfs_j, rels)]
+    ws_t = [[torch.as_tensor(np.array(w)) for w in w_j] for w_j in ws_j]
+    pose0s = np.stack([np.zeros(6, np.float32), 0.5 * rels[1], rels[2]]
+                      ).astype(np.float32)
+    return kfs_j, kfs_t, ws_j, ws_t, rels, pose0s
+
+
+def _stack(levels, n=3):
+    return tuple(alignment.KeyframeLevel(*(torch.stack([a] * n) for a in lv))
+                 for lv in levels)
+
+
+def _stack_candidates(kfs_t, ws_t, level):
+    """The candidates' keyframe level and weight image along a leading B."""
+    kf = alignment.KeyframeLevel(*(torch.stack(parts) for parts in zip(
+        *(k[level] for k in kfs_t))))
+    return kf, torch.stack([w[level] for w in ws_t])
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_weight_image_and_template_jacobian_match_jax(pair, level):
+    kf_j, cur_j, kf_t, cur_t = pair
+    pose = 0.5 * TRUE
+    wj = np.asarray(jalign.weight_image(kf_j[level], cur_j[level],
+                                        jnp.asarray(pose), level, JCFG))
+    wt = alignment.weight_image(kf_t[level], cur_t[level],
+                                torch.as_tensor(pose), level, CFG).numpy()
+    np.testing.assert_allclose(wj, wt, rtol=1e-5, atol=1e-5 * wj.max())
+    assert (wt > 0).mean() > 0.3
+    Jj = np.asarray(jalign._template_jacobian(kf_j[level], level, JCFG))
+    Jt = alignment._template_jacobian(kf_t[level], level, CFG)
+    np.testing.assert_allclose(Jj, Jt.numpy(), rtol=1e-5,
+                               atol=1e-5 * np.abs(Jj).max())
+    # a leading candidate axis gives each candidate its own rows
+    Jb = alignment._template_jacobian(_stack([kf_t[level]], 2)[0], level, CFG)
+    assert torch.equal(Jb[1], Jt)
+
+
+def test_gn_level_const_weight_freezes_per_candidate(pair, candidates):
+    """Three distinct keyframes in one call against three JAX calls: the
+    candidate that starts at its solution converges first, and its freeze
+    does not stop the other two."""
+    _, cur_j, _, cur_t = pair
+    kfs_j, kfs_t, ws_j, ws_t, _, pose0s = candidates
+    level = 1
+    want = [jalign.gn_level_const_weight(kf_j[level], w_j[level],
+                                         cur_j[level], jnp.asarray(p), level,
+                                         JCFG, 7)
+            for kf_j, w_j, p in zip(kfs_j, ws_j, pose0s)]
+    kf_b, w_b = _stack_candidates(kfs_t, ws_t, level)
+    pose, wp, iters = alignment.gn_level_const_weight(
+        kf_b, w_b, cur_t[level], torch.as_tensor(pose0s), level, CFG, 7)
+    np.testing.assert_array_equal([int(w[2]) for w in want], iters.numpy())
+    assert len(set(iters.tolist())) > 1 and int(iters[2]) < int(iters[0])
+    np.testing.assert_allclose(np.stack([np.asarray(w[0]) for w in want]),
+                               pose.numpy(), atol=1e-4)
+
+
+def test_align_const_weight_batch_matches_three_jax_calls(pair, candidates):
+    _, cur_j, _, cur_t = pair
+    kfs_j, kfs_t, ws_j, ws_t, rels, pose0s = candidates
+    want = np.stack([np.asarray(jalign.align_const_weight_jit(
+        kf_j, tuple(w_j), cur_j, jnp.asarray(p), JCFG)[0])
+        for kf_j, w_j, p in zip(kfs_j, ws_j, pose0s)])
+    stacked = [_stack_candidates(kfs_t, ws_t, l) for l in range(4)]
+    got, wp = alignment.align_const_weight(
+        tuple(k for k, _ in stacked), tuple(w for _, w in stacked), cur_t,
+        torch.as_tensor(pose0s), CFG)
+    assert got.shape == (3, 6) and wp.shape == (3,)
+    np.testing.assert_allclose(want, got.numpy(), atol=1e-4)
+    # every candidate lands on its own keyframe's true relative pose
+    np.testing.assert_allclose(got.numpy(), rels, atol=2e-3)

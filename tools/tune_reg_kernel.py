@@ -81,7 +81,7 @@ def main() -> int:
     cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
     frames = np.load(chip_smoke.FRAMES)["frames"]
     st = pipeline.init_pipeline(frames[0], cfg, dev)
-    st, _ = pipeline.process_interval(st, list(frames[1:8]), cfg)
+    st, _, _ = pipeline.process_interval(st, list(frames[1:8]), cfg)
     state, maxg = st.depth, st.kf.maxgrad
     H, W = state.valid.shape
     stream = torch.cuda.current_stream().cuda_stream
