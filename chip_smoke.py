@@ -14,11 +14,16 @@ Phases, each announced on its own line:
    equal to NaN), on a numpy-seeded state with holes and on a real state
    from the pipeline at 480x270, and on states whose border pixels are
    valid at 480x270 and at the ragged shapes 37x53 and 21x100, for both
-   remove_occlusions and both hole-fill modes; then the time of each on
-   the card at 480x270 (CUDA events; the JSON line reports the card's
-   time per call from CUDA-graph replays, in turns with the plain
-   version, the printed line also one eager call's latency, host
-   dispatch included);
+   remove_occlusions and both hole-fill modes; batches of distinct
+   states in one launch (3 seeded at 480x270 and 37x53, 5 seeded at
+   480x270 as in phase 8's recovery trials, and 20 at 480x270, the
+   window cap, made by rolling the real state), each state held bit for
+   bit against the plain version on it alone, for both
+   remove_occlusions, with the fill and without; then the time of each
+   on the card at 480x270, alone and as that batch of 20 (CUDA events;
+   the JSON line reports the card's time per call from CUDA-graph
+   replays, in turns with the plain version, the printed line also one
+   eager call's latency, host dispatch included);
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's launch
    counts must equal what the frame schedule implies, every pose must be
@@ -36,16 +41,27 @@ Phases, each announced on its own line:
    1e-4, edge rotation components within 4.4e-3 rad (0.25 degrees),
    corrected poses within 1e-2 per component; K3's launch counts equal
    the LC schedule; prints the edge pairs in common with the binary's
-   matchframes_globalopt.txt;
+   matchframes_globalopt.txt.  It runs with do_sim3_refine: the port's
+   Sim(3) refinement on the golden file's own corrected poses and edges
+   must give the JAX package's refined poses within 1e-4 per component,
+   and the run's refined poses must be within 1e-2 of them;
 7. LC mode: run_ellc_lc over exactly 144 frames of run_lc, no
    max_frames: the bootstrap batch and two batches of 32 frames, each
    rotation-averaged and replayed, the stream ending on a batch boundary;
    every pose finite, frame ids 2..144 once each, three batches, at least
    one loop edge, K3's launch counts equal to the schedule with replays;
    prints LC frames/s and the time of each phase (track, window, ra,
-   replay).
+   replay);
+8. connection recovery: runner.run_sequence with restore_connection over
+   the first 48 frames of run_gn under the parity config, frames 40 and
+   41 replaced by a flat gray image, against the JAX package's run
+   (tests/data/port_golden_recovery.json, tools/make_port_golden.py
+   --recovery): the same recoveries (frame, matched keyframe), dropped
+   frames and frame ids, the recovered pose w.r.t. its keyframe within
+   4.4e-3 rad in rotation, the recovery's seeds% within 2 points, every
+   pose finite, K3's launch counts equal to a hand count of the schedule.
 
-Each driven path (phases 4, 6 and 7) sets K3's launch counts to 0 just
+Each driven path (phases 4, 6, 7 and 8) sets K3's launch counts to 0 just
 before it and reads them just after.  The last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -67,6 +83,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "egomotion_with_local_loop_closures_tpu_torch"
@@ -75,6 +92,8 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_run_gn.json")
 LC_GOLDEN = os.path.join(ROOT, "tests", "data", "port_golden_run_lc.json")
 LC_EDGES = os.path.join(ROOT, "reference_build", "run_lc", "outputs",
                         "matchframes_globalopt.txt")
+RECOVERY_GOLDEN = os.path.join(ROOT, "tests", "data",
+                               "port_golden_recovery.json")
 MAIN_FRAMES = 129
 LC_BOOTSTRAP_FRAMES, LC_FRAMES = 80, 144
 # K3 launches of the two LC runs, counted by hand from the frame schedule
@@ -88,6 +107,16 @@ LC_BOOTSTRAP_FRAMES, LC_FRAMES = 80, 144
 # 89 + 89 + 4 x 36 = 322 and 1 + 10 + 10 + 4 x 4 = 37.
 LC_BOOTSTRAP_LAUNCHES = {"do_regularization": 89, "regularize": 11}
 LC_MODE_LAUNCHES = {"do_regularization": 322, "regularize": 37}
+# Phase 8, 48 frames with frames 40 and 41 flat: keyframe steps at 8, 16,
+# 24, 32 and 40 (the last builds keyframe 40 on the flat frame, with no
+# seeds); frame 41 finds no candidate among keyframes 32, 24, 16, 8 and 1
+# (one batched trial: one launch of each wrapper) and is dropped; frame 42
+# is recovered (another batched trial) and becomes a keyframe; frames 43-47
+# track and 48 is a keyframe step.  track_refine steps: 34 (frames 2-39)
+# + 5 = 39; keyframe steps 6: 39 + 2 x 6 + 2 = 53 and 1 + 6 + 2 = 9.
+RECOVERY_LAUNCHES = {"do_regularization": 53, "regularize": 9}
+# connection recovery's batch at its largest: the loop window's cap
+RECOVERY_BATCH = 20
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -238,8 +267,9 @@ def sass_counts(lib_path, cuobjdump):
 
 
 def k3_work(state, maxg, cfg, occl, filled):
-    """(compulsory bytes, float32 operations) of one K3 call on this data.
-    Bytes: each input plane read once, each output plane written once.
+    """(compulsory bytes, float32 operations) of one K3 call on this data
+    (one state or a batch).  Bytes: each input plane read once, each
+    output plane written once.
     Operations, each add, sub, mul, div or compare one: with the fill,
     2 a valid pixel (1/var and its product with idepth) and 101 a hole
     that passes the region and gradient gates (75 tap sums, the validity
@@ -250,7 +280,7 @@ def k3_work(state, maxg, cfg, occl, filled):
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS)
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
-    H, W = state.valid.shape
+    H, W = state.valid.shape[-2:]
     planes = [getattr(state, n) for n in FIELDS]
     written = FIELDS if maxg is not None else reg_kernel._SMOOTHED
     nbytes = sum(t.numel() * t.element_size() for t in planes)
@@ -259,10 +289,10 @@ def k3_work(state, maxg, cfg, occl, filled):
     ops = 0
     if maxg is not None:
         nbytes += maxg.numel() * maxg.element_size()
-        holes = ~state.valid[3:H - 3, 3:W - 2] & (
-            maxg[3:H - 3, 3:W - 2] >= cfg.min_abs_grad_decrease)
+        holes = ~state.valid[..., 3:H - 3, 3:W - 2] & (
+            maxg[..., 3:H - 3, 3:W - 2] >= cfg.min_abs_grad_decrease)
         ops += 2 * int(state.valid.sum()) + 101 * int(holes.sum())
-    touched = int(filled.valid[3:H - 3, 2:W - 2].sum())
+    touched = int(filled.valid[..., 3:H - 3, 2:W - 2].sum())
     ops += 12 * int(filled.valid.sum()) + (25 * (12 if occl else 9) + 3) \
         * touched
     return nbytes, ops
@@ -316,7 +346,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     for need in (os.path.join(ROOT, PKG, "__init__.py"), FRAMES, GOLDEN,
-                 LC_GOLDEN, LC_EDGES):
+                 LC_GOLDEN, LC_EDGES, RECOVERY_GOLDEN):
         if not os.path.exists(need):
             print(f"chip_smoke: {need} is missing: run from a checkout of "
                   f"the repository", file=sys.stderr)
@@ -422,45 +452,110 @@ def main() -> int:
                 print(f"{label} state, lsd_correct_hole_fill={lsd}, "
                       f"remove_occlusions={occl}: equal bit for bit "
                       f"(max abs err {e1:.3g} / {e2:.3g})")
-    state, maxg = real
-    timed = {
-        "do_regularization": (
-            lambda: reg_kernel.do_regularization(state, maxg, cfg),
-            lambda: propagate.do_regularization(state, maxg, cfg)),
-        "regularize": (
-            lambda: reg_kernel.regularize(state, cfg, True),
-            lambda: propagate.regularize(state, cfg, True)),
-    }
-    work = {
-        "do_regularization": k3_work(
-            state, maxg, cfg, False, propagate.fill_holes(state, maxg, cfg)),
-        "regularize": k3_work(state, None, cfg, True, state),
-    }
-    times, bounds = {}, {}
-    for name, (kern, plain) in timed.items():
-        plain()
-        kern()                                     # warm-up
-        # turns plain/kernel/kernel/plain: device time per call, then the
-        # latency of one call on an idle card (host dispatch included)
-        runs = [device_ms(f, reps) for f, reps in
-                ((plain, 10), (kern, 200), (kern, 200), (plain, 10))]
-        ahead = all(a for _, a in runs)
-        ts = [t for t, _ in runs]
-        times[name] = ((ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2)
-        nbytes, ops = work[name]
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-        bounds[name] = (1e3 * max(t_bytes, t_ops),
-                        "bytes" if t_bytes >= t_ops else "operations")
-        lat_k, lat_p = call_ms(kern), call_ms(plain)
-        print(f"{name} at 270x480: device time per call kernel "
-              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms"
-              f" (turns: {' '.join(f'{t:.5f}' for t in ts)}; host "
-              f"queue stayed ahead: {ahead}); latency of one call, median "
-              f"of 30: kernel {lat_k:.4f} ms, plain {lat_p:.4f} ms; bound "
-              f"{bounds[name][0]:.5f} ms by {bounds[name][1]} ({nbytes} B, "
-              f"{ops} float32 ops: {1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} "
-              f"us), {100 * bounds[name][0] / times[name][0]:.1f} % of it "
-              f"reached; on {gpu}")
+
+    def one_of(batch, b):
+        return batch.replace(**{n: getattr(batch, n)[b] for n in FIELDS})
+
+    def hold_batch(label, states):
+        """A batch of distinct (state, maxgrad) pairs in one launch of each
+        wrapper, each state held bit for bit against the plain version on
+        it alone; returns the batch."""
+        H, W = states[0][1].shape
+        c = cfg.replace(rows=H, cols=W)
+        batch = DepthMapState(**{n: torch.stack([getattr(st_b, n) for st_b, _
+                                                 in states])
+                                 for n in FIELDS})
+        maxg_b = torch.stack([m for _, m in states])
+        for occl in (False, True):
+            got = reg_kernel.do_regularization(batch, maxg_b, c, occl)
+            got_r = reg_kernel.regularize(batch, c, occl)
+            torch.cuda.synchronize()
+            errs = []
+            for b, (st_b, m_b) in enumerate(states):
+                errs.append((compare(propagate.do_regularization(
+                    st_b, m_b, c, occl), one_of(got, b), FIELDS),
+                    compare(propagate.regularize(st_b, c, occl),
+                            one_of(got_r, b), FIELDS)))
+            worst["do_regularization"] = max(
+                [worst["do_regularization"]] + [e for e, _ in errs])
+            worst["regularize"] = max([worst["regularize"]]
+                                      + [e for _, e in errs])
+            print(f"{label}, remove_occlusions={occl}: each state equal bit "
+                  f"for bit to the plain version alone (max abs err "
+                  f"{max(e for e, _ in errs):.3g} / "
+                  f"{max(e for _, e in errs):.3g})")
+        return batch, maxg_b
+
+    def seeded(B, shape):
+        return [on_card((random_planes, border_planes)[k % 2](13 + k, shape))
+                for k in range(B)]
+
+    # three seeded states, at full size and ragged; five, the batch of
+    # phase 8's recovery trials; and the window cap's twenty, the real
+    # state rolled by (7b, 23b) pixels for b = 0..19
+    B = RECOVERY_BATCH
+    hold_batch(f"batch of 3 seeded states {cfg.rows}x{cfg.cols}",
+               seeded(3, cfg.shape))
+    hold_batch("batch of 3 seeded states 37x53", seeded(3, (37, 53)))
+    hold_batch(f"batch of 5 seeded states {cfg.rows}x{cfg.cols}",
+               seeded(5, cfg.shape))
+    rolled = hold_batch(
+        f"batch of {B} rolled real states {cfg.rows}x{cfg.cols}",
+        [(real[0].replace(**{n: torch.roll(getattr(real[0], n),
+                                           (7 * b, 23 * b), (0, 1))
+                             for n in FIELDS}),
+          torch.roll(real[1], (7 * b, 23 * b), (0, 1))) for b in range(B)])
+
+    def timing(label, state, maxg):
+        """Device time per call of each wrapper on ``state``, in turns
+        with its plain version, beside its bound."""
+        timed = {
+            "do_regularization": (
+                lambda: reg_kernel.do_regularization(state, maxg, cfg),
+                lambda: propagate.do_regularization(state, maxg, cfg)),
+            "regularize": (
+                lambda: reg_kernel.regularize(state, cfg, True),
+                lambda: propagate.regularize(state, cfg, True)),
+        }
+        work = {
+            "do_regularization": k3_work(
+                state, maxg, cfg, False,
+                propagate.fill_holes(state, maxg, cfg)),
+            "regularize": k3_work(state, None, cfg, True, state),
+        }
+        out = {}
+        for name, (kern, plain) in timed.items():
+            plain()
+            kern()                                     # warm-up
+            # turns plain/kernel/kernel/plain: device time per call, then
+            # the latency of one call on an idle card (host dispatch
+            # included)
+            runs = [device_ms(f, reps) for f, reps in
+                    ((plain, 10), (kern, 200), (kern, 200), (plain, 10))]
+            ahead = all(a for _, a in runs)
+            ts = [t for t, _ in runs]
+            k_ms, p_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+            nbytes, ops = work[name]
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+            bound = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+            out[name] = (k_ms, p_ms, *bound)
+            lat_k, lat_p = call_ms(kern), call_ms(plain)
+            print(f"{name} {label}: device time per call kernel "
+                  f"{k_ms:.5f} ms, plain {p_ms:.5f} ms (turns: "
+                  f"{' '.join(f'{t:.5f}' for t in ts)}; host queue stayed "
+                  f"ahead: {ahead}); latency of one call, median of 30: "
+                  f"kernel {lat_k:.4f} ms, plain {lat_p:.4f} ms; bound "
+                  f"{bound[0]:.5f} ms by {bound[1]} ({nbytes} B, {ops} "
+                  f"float32 ops: {1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} "
+                  f"us), {100 * bound[0] / k_ms:.1f} % of it reached; on "
+                  f"{gpu}")
+        return out
+
+    timed_one = timing("at 270x480", *real)
+    timed_batch = timing(
+        f"on a batch of {B} states at 270x480 (the real state rolled)",
+        *rolled)
 
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
@@ -518,13 +613,15 @@ def main() -> int:
     check(n_lc == lc_golden["max_frames"] == LC_BOOTSTRAP_FRAMES,
           f"the LC golden file covers {LC_BOOTSTRAP_FRAMES} frames")
     phase(f"6 LC bootstrap: run_ellc_lc over {n_lc} frames of run_lc "
-          f"(max_frames {lc_golden['max_frames']}) on cuda")
+          f"(max_frames {lc_golden['max_frames']}) on cuda, with Sim(3) "
+          f"refinement")
     expect6 = LC_BOOTSTRAP_LAUNCHES
     stats6 = {}
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
     t0 = time.perf_counter()
-    res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]), lc_cfg, dev,
+    res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]),
+                               lc_cfg.replace(do_sim3_refine=True), dev,
                                max_frames=lc_golden["max_frames"],
                                stats=stats6)
     torch.cuda.synchronize()
@@ -559,6 +656,26 @@ def main() -> int:
           f"{d_cor:.3g} (tol 1e-2)")
     check(d_kl <= 1e-4 and d_rot <= 4.4e-3 and d_cor <= 1e-2,
           "LC bootstrap matches the golden file")
+    # Sim(3) refinement: on the golden file's own inputs (the JAX
+    # package's corrected poses and edges), then the run's
+    g_sim3 = np.asarray(lc_golden["sim3_world_poses"])
+    t0 = time.perf_counter()
+    own = ellc_lc._sim3_refine_trajectory(
+        np.asarray(lc_golden["frame_ids"]),
+        np.asarray(lc_golden["world_poses"], np.float32),
+        [types.SimpleNamespace(**e) for e in g_edges],
+        lc_cfg.replace(do_sim3_refine=True), dev)
+    sim3_s = time.perf_counter() - t0
+    d_own = float(np.abs(own - g_sim3).max())
+    d_run = float(np.abs(res6.sim3_world_poses - g_sim3).max())
+    print(f"Sim(3): on the golden file's inputs max |refined pose diff| "
+          f"{d_own:.3g} (tol 1e-4) in {sim3_s:.3f} s; the run's refined "
+          f"poses {d_run:.3g} (tol 1e-2), moved up to "
+          f"{float(np.abs(res6.sim3_world_poses - res6.world_poses).max()):.3g}"
+          f" from the corrected ones; sim3 phase {stats6['sim3']:.3f} s")
+    check(d_own <= 1e-4, "Sim(3) on the golden inputs matches the JAX "
+          "package")
+    check(d_run <= 1e-2, "the run's Sim(3) poses match the golden file")
 
     phase(f"7 LC mode: run_ellc_lc over {LC_FRAMES} frames of run_lc on "
           f"cuda")
@@ -590,17 +707,71 @@ def main() -> int:
     check(bool(np.isfinite(res7.world_poses).all()), "LC poses finite")
     check(res7.num_loop_edges >= 1, "at least one loop edge")
 
+    with open(RECOVERY_GOLDEN) as f:
+        rec_golden = json.load(f)
+    check(rec_golden["frames_file"] == os.path.relpath(FRAMES, ROOT),
+          "the recovery golden file ran on run_gn's frames")
+    n_rec = rec_golden["num_input_frames"]
+    rec_cfg = ELLCConfig().replace(**rec_golden["config_overrides"])
+    rec_frames = frames[:n_rec].copy()
+    for fid in rec_golden["flat_frame_ids"]:
+        rec_frames[fid - 1] = rec_golden["flat_gray"]
+    phase(f"8 connection recovery: run_sequence over {n_rec} frames of "
+          f"run_gn, frames {rec_golden['flat_frame_ids']} flat, on cuda")
+    expect8 = RECOVERY_LAUNCHES
+    torch.cuda.synchronize()
+    reg_kernel.reset_launches()
+    t0 = time.perf_counter()
+    res8 = runner.run_sequence(iter(rec_frames), rec_cfg, dev)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    launches8 = dict(reg_kernel.launches)
+    recs = res8.extra["recoveries"]
+    pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
+    g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
+                for r in rec_golden["recoveries"]]
+    print(f"K3 launches {launches8}, expected {expect8}; recoveries "
+          f"{pairs8} (golden {g_pairs8}), dropped "
+          f"{res8.extra['dropped_frames']} (golden "
+          f"{rec_golden['dropped_frames']}); {len(res8.frame_ids)} frames in "
+          f"{wall8:.3f} s on {gpu}")
+    check(launches8 == expect8, "K3 launch counts match the recovery "
+          "schedule")
+    check(pairs8 == g_pairs8 and len(pairs8) >= 1,
+          "the recoveries equal the golden file's")
+    check(res8.extra["dropped_frames"] == rec_golden["dropped_frames"],
+          "the dropped frames equal the golden file's")
+    check(res8.frame_ids.tolist() == rec_golden["frame_ids"], "frame ids")
+    check(bool(np.isfinite(res8.world_poses).all()), "recovery poses finite")
+    g_attempts = {a["frame_id"]: a for a in rec_golden["attempts"]}
+    for r, g in zip(recs, rec_golden["recoveries"]):
+        g_pose = np.asarray(g_attempts[g["frame_id"]]["pose_wrt_matched"])
+        d_rot8 = float(np.abs(r["pose_wrt_matched"][:3] - g_pose[:3]).max())
+        d_seeds8 = abs(r["seeds"] - g["seeds"])
+        print(f"frame {r['frame_id']} recovered against keyframe "
+              f"{r['matched_kf_id']} from {len(g_attempts[g['frame_id']]['candidates'])}"
+              f" candidates: max |rotation diff| {d_rot8:.3g} rad (tol "
+              f"4.4e-3), |translation diff| "
+              f"{float(np.abs(r['pose_wrt_matched'][3:] - g_pose[3:]).max()):.3g}"
+              f", seeds% {r['seeds']:.3f} against {g['seeds']:.3f} (tol 2)")
+        check(d_rot8 <= 4.4e-3, "recovered rotation matches the golden file")
+        check(d_seeds8 <= 2.0, "recovery seeds% match the golden file")
+
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
     by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
-               "lc_mode": launches7}
+               "lc_mode": launches7, "recovery": launches8}
     print(json.dumps({"kernels": [
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
          "launches_by_path": {k: v[name] for k, v in by_path.items()},
-         "max_abs_err": worst[name], "ms": times[name][0],
-         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "max_abs_err": worst[name], "ms": timed_one[name][0],
+         "plain_ms": timed_one[name][1], "bound_ms": timed_one[name][2],
+         "bound_by": timed_one[name][3], "library_ms": None,
+         "batched": {"states": RECOVERY_BATCH, "ms": timed_batch[name][0],
+                     "plain_ms": timed_batch[name][1],
+                     "bound_ms": timed_batch[name][2],
+                     "bound_by": timed_batch[name][3]}}
         for name in ("do_regularization", "regularize")]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,14 @@ each function's counterpart is found under the same path:
 - ``track``:   multi-scale Gauss-Newton direct image alignment.
 - ``depth``:   inverse-depth filter (epipolar stereo, EKF, propagation,
   hole filling and regularization).
-- ``loop``:    local loop closure: histograms and the keyframe window.
-- ``graph``:   rotation averaging and the per-batch pose correction.
+- ``loop``:    local loop closure (histograms, the keyframe window) and
+  connection recovery.
+- ``graph``:   rotation averaging, the per-batch pose correction and the
+  Sim(3) pose-graph refinement.
 - ``ops``:     hand-written CUDA kernels with their bindings
   (sources under ``csrc/``).
 - ``runtime``: the frame-loop pipeline, the sequence runner, LC mode
-  (``ellc_lc``), pose IO and the CLI.
+  (``ellc_lc``), checkpoints, pose IO and the CLI.
 - ``convert``: moves pipeline states between the JAX package and the port.
 
 The port imports ``torch`` and ``numpy``, never ``jax``.

@@ -123,7 +123,7 @@ class ELLCConfig:
     trigger_loop_closure_on: float = 20.0
     trigger_loop_closure_off: float = 1.0
 
-    # rotation averaging (do_sim3_refine is not ported)
+    # rotation averaging, and the Sim(3) refinement after it
     ra_batch_size: int = 4
     ra_batch_size_bootstrap: int = 10
     ra_sigma_deg: float = 5.0

@@ -6,7 +6,10 @@ names (:func:`as_tree` flattens any NamedTuple that way, without
 importing jax); :func:`to_port` builds the port's object from such a
 tree, and :func:`to_numpy` turns a port state back into one.  With it, a
 test can start both implementations from the same state at any frame, or
-feed one keyframe snapshot to both loop closers.
+feed one keyframe snapshot to both loop closers.  A snapshot that carries
+its keyframe's depth state (the JAX package's connection-recovery window)
+brings it along, so the JAX window can be handed to the port's
+``loop/recovery.find_connection``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ def _depth_state(tree, device) -> DepthMapState:
 
 
 def _snapshot(tree, device) -> KeyframeSnapshot:
+    depth = tree.get("depth_state")
     return KeyframeSnapshot(
         image=_tensor(tree["image"], device),
         kf_levels=tuple(KeyframeLevel(*(_tensor(lv[k], device)
@@ -52,12 +56,15 @@ def _snapshot(tree, device) -> KeyframeSnapshot:
                             for a in tree["weight_levels"]),
         world_pose=_tensor(tree["world_pose"], device),
         rescale=_tensor(tree["rescale"], device),
-        seeds=_tensor(tree["seeds"], device))
+        seeds=_tensor(tree["seeds"], device),
+        depth_state=(_depth_state(depth, device) if isinstance(depth, dict)
+                     else None))
 
 
 def to_port(tree, device):
     """A flattened JAX ``PipelineState``, ``DepthMapState`` or
-    ``KeyframeSnapshot`` -> the port's."""
+    ``KeyframeSnapshot`` (with or without its ``depth_state``) -> the
+    port's."""
     device = torch.device(device)
     if "kf_levels" in tree:
         return _snapshot(tree, device)

@@ -22,16 +22,19 @@
 // the instruction time it implies are printed by chip_smoke.py (phase 2),
 // with its registers and shared memory per block (cuobjdump -res-usage,
 // the numbers ptxas -v prints).  Built by nvcc 12.9 for sm_90a: with the
-// fill 40 registers, 29,184 B of shared memory and 2,223 SASS instructions
-// (2,340 with remove_occlusions); without it 35 / 37 registers, 18,304 B
-// and 934 / 1,051 instructions; no stack, no spills.  Were every thread
+// fill 40 registers, 29,184 B of shared memory and 1,681 SASS instructions
+// (1,798 with remove_occlusions); without it 36 / 38 registers, 18,304 B
+// and 960 / 1,077 instructions; no stack, no spills.  Were every thread
 // to run every instruction once, at four warp instructions a clock per SM,
-// 270x480 would take 8.7 / 9.1 us with the fill and 3.7 / 4.1 us without,
-// at 1,980 MHz on 132 SMs.
+// one 270x480 state would take 6.6 / 7.0 us with the fill and 3.7 / 4.2 us
+// without, at 1,980 MHz on 132 SMs.
 // The measured times on an H100 are in PERF.md.
 //
-// Design: one launch per call; each block of 32x8 threads owns a 32x8
-// output tile (tuned from 32x16 with tools/tune_reg_kernel.py: 510 blocks
+// Design: one launch per call, for one (H, W) state or a batch of B states
+// laid out (B, H, W) (the connection-recovery trials, one per loop-window
+// candidate): blockIdx.z picks the state, whose planes start b*H*W into
+// each array, and nothing is shared between states.  Each block of 32x8
+// threads owns a 32x8 output tile (tuned from 32x16 with tools/tune_reg_kernel.py: 510 blocks
 // of 256 threads beat 255 of 512 by 6-9 %; two pixels a thread, sharing
 // their neighbour rows, lost, so shared-memory bandwidth is not the limit).
 //   1. It loads the raw planes its taps read -- the tile with a halo of 5
@@ -61,6 +64,10 @@
 // each tap would compute.  Built with -fmad=false so no multiply-add is
 // contracted.  The gates are evaluated lazily; they have no side effects,
 // so the result is the same.
+//
+// A batch of B states reads and writes B times the bytes above: at B = 20
+// and 270x480, 140 MB with the fill (41.8 us at 3.35 TB/s) and 98.4 MB
+// without (29.4 us).
 //
 // Plain C interface, bound with ctypes: ellc_reg launches on the given
 // stream, does not synchronize, allocates nothing, and returns
@@ -171,6 +178,8 @@ reg_kernel(const Args a) {
   __shared__ float s_recip[kNumDist][kRing];
 
   const int H = a.H, W = a.W;
+  // the first element of this block's state in every plane
+  const int64_t base = (int64_t)blockIdx.z * H * W;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
   const int y0 = blockIdx.y * kTileY, x0 = blockIdx.x * kTileX;
 
@@ -188,7 +197,7 @@ reg_kernel(const Args a) {
     const int r = i / kLoadW, c = i - r * kLoadW;
     const int y = y0 - kHaloY + r, x = x0 - kHaloX + c;
     const bool in = i < kLoadN && y >= 0 && y < H && x >= 0 && x < W;
-    const int j = y * W + x;
+    const int64_t j = base + y * W + x;
     // the reference's edge values: valid 0, idepth 0, var 1, validity 0
     l_v[k] = in && a.valid[j] != 0;
     l_id[k] = in ? a.idepth[j] : 0.f;
@@ -231,7 +240,7 @@ reg_kernel(const Args a) {
       float4 f = s_ring[i];
       // fill_finish's gate over rows 3..H-4, columns 3..W-3
       if (f.w == 0.f && y >= 3 && y < H - 3 && x >= 3 && x < W - 2) {
-        const int j = y * W + x;
+        const int64_t j = base + y * W + x;
         const float4* raw = s_raw + (ry + kRawOffY) * kRawX + (rx + kRawOffX);
         if (a.maxgrad[j] >= a.min_abs_grad_decrease) {
           float val;
@@ -274,7 +283,7 @@ reg_kernel(const Args a) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int y = y0 + ty, x = x0 + tx;
   if (y >= H || x >= W) return;
-  const int i = y * W + x;
+  const int64_t i = base + y * W + x;
   const int ci = (ty + 2) * kRingX + (tx + 2);
   const float4 c = s_ring[ci];
   const bool c_valid = c.w != 0.f;
@@ -323,8 +332,9 @@ reg_kernel(const Args a) {
 }
 
 template <bool kFill, bool kOccl>
-void launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.W + kTileX - 1) / kTileX, (a.H + kTileY - 1) / kTileY);
+void launch(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid((a.W + kTileX - 1) / kTileX, (a.H + kTileY - 1) / kTileY,
+                  B);
   reg_kernel<kFill, kOccl><<<grid, dim3(kTileX, kTileY), 0, stream>>>(a);
 }
 
@@ -332,13 +342,14 @@ void launch(const Args& a, cudaStream_t stream) {
 
 // fillDepthHoles + regularizeDepthMap (fill = 1: reads maxgrad, writes all
 // seven output planes) or regularizeDepthMap alone (fill = 0: maxgrad,
-// o_idepth, o_var and o_validity may be null).
+// o_idepth, o_var and o_validity may be null), on B states of H x W, each
+// array holding the B planes one after another.
 extern "C" int ellc_reg(
     const float* idepth, const float* var, const float* idepth_s,
     const float* var_s, const float* validity, const int32_t* bl,
     const uint8_t* valid, const float* maxgrad, float* o_idepth, float* o_var,
     float* o_idepth_s, float* o_var_s, float* o_validity, int32_t* o_bl,
-    uint8_t* o_valid, int H, int W, int fill, int remove_occlusions,
+    uint8_t* o_valid, int B, int H, int W, int fill, int remove_occlusions,
     float min_abs_grad_decrease, int min_blacklist,
     float val_sum_min_for_create, float val_sum_min_for_unblacklist,
     float var_random_init, int lsd_correct_hole_fill,
@@ -352,8 +363,10 @@ extern "C" int ellc_reg(
                reg_dist_var, val_sum_min_for_keep};
   const cudaStream_t s = (cudaStream_t)stream;
   if (fill)
-    remove_occlusions ? launch<true, true>(a, s) : launch<true, false>(a, s);
+    remove_occlusions ? launch<true, true>(a, B, s)
+                      : launch<true, false>(a, B, s);
   else
-    remove_occlusions ? launch<false, true>(a, s) : launch<false, false>(a, s);
+    remove_occlusions ? launch<false, true>(a, B, s)
+                      : launch<false, false>(a, B, s);
   return (int)cudaGetLastError();
 }

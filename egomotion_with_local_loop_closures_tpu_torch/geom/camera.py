@@ -1,7 +1,9 @@
-"""Pinhole camera model: intrinsics, pixel grids, (back)projection.
+"""Pinhole camera model: intrinsics, pixel grids, (back)projection and
+undistortion.
 
-Port of ``egomotion_with_local_loop_closures_tpu/geom/camera.py`` (the
-undistortion map is outside the port's slice).
+Port of ``egomotion_with_local_loop_closures_tpu/geom/camera.py``: the
+OpenCV 5-parameter radial/tangential model that ``cv::undistort`` applies
+in ``src/Frame.cpp:86-96``.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from egomotion_with_local_loop_closures_tpu_torch.image import interp
 
 
 def intrinsics_matrix(fx: float, fy: float, cx: float, cy: float,
@@ -46,3 +50,41 @@ def pixel_grid(rows: int, cols: int, device=None, dtype=torch.float32
     x = torch.arange(cols, dtype=dtype, device=device)[None, :].expand(
         rows, cols)
     return x, y
+
+
+def distort_normalized(xn: torch.Tensor, yn: torch.Tensor,
+                       dist: Tuple[float, float, float, float, float]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The OpenCV 5-parameter model (k1, k2, p1, p2, k3) on normalized
+    coordinates: ideal -> distorted."""
+    k1, k2, p1, p2, k3 = dist
+    r2 = xn * xn + yn * yn
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
+    yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
+    return xd, yd
+
+
+def undistort_map(rows: int, cols: int,
+                  fx: float, fy: float, cx: float, cy: float,
+                  dist: Tuple[float, float, float, float, float],
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates (x_src, y_src) to sample the raw image at for
+    each pixel of the undistorted image: cv::initUndistortRectifyMap with
+    the new camera matrix equal to K (the JAX package's choice; the
+    reference's getOptimalNewCameraMatrix(alpha=0) moves only the crop)."""
+    x, y = pixel_grid(rows, cols, device=device)
+    xd, yd = distort_normalized((x - cx) / fx, (y - cy) / fy, dist)
+    return xd * fx + cx, yd * fy + cy
+
+
+def undistort_image(image: torch.Tensor,
+                    fx: float, fy: float, cx: float, cy: float,
+                    dist: Tuple[float, float, float, float, float]
+                    ) -> torch.Tensor:
+    """Undistort an (H, W) image by bilinear resampling at the distorted
+    source coordinates (cv::undistort, Frame.cpp:86-96); samples outside
+    the image are 0, cv::remap's default border."""
+    H, W = image.shape
+    xs, ys = undistort_map(H, W, fx, fy, cx, cy, dist, device=image.device)
+    return interp.bilinear_fill(image, xs, ys)

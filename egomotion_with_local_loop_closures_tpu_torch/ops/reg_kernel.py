@@ -7,8 +7,10 @@ source is ``csrc/reg_kernel.cu``: one launch per call, each block filling
 and smoothing a 32x8 tile from shared memory.  What bounds it on the card
 and how it is laid out is written at the top of that file.
 
-Two wrappers, each making one launch per call and counting it in
-:data:`launches`:
+Both wrappers take one state of (H, W) planes or a batch of B states of
+(B, H, W) planes (the connection-recovery trials, one per loop-window
+candidate, with ``kf_maxgrad`` (B, H, W) too).  Each makes one launch per
+call, whatever B is, and counts it in :data:`launches`:
 
 - :func:`do_regularization` -- the fill, then the smoothing;
 - :func:`regularize` -- the smoothing alone (the standalone
@@ -90,7 +92,7 @@ def build() -> Path:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signature of ``ellc_reg`` on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ellc_reg.argtypes = [p] * 15 + [i, i, i, i, f, i, f, f, f, i,
+    lib.ellc_reg.argtypes = [p] * 15 + [i, i, i, i, i, f, i, f, f, f, i,
                                         f, f, f, p]
     lib.ellc_reg.restype = i
     return lib
@@ -109,11 +111,18 @@ _DTYPES = dict(idepth=torch.float32, var=torch.float32,
                valid=torch.bool)
 
 
+# a grid's z extent, which indexes the batch
+_MAX_BATCH = 65535
+
+
 def _check(state: DepthMapState, maxgrad: Optional[torch.Tensor] = None):
     dev = state.idepth.device
     if dev.type != "cuda":
         raise ValueError(f"K3 runs on CUDA tensors or CPU tensors, not {dev}")
     shape = state.idepth.shape
+    if len(shape) == 3 and not 1 <= shape[0] <= _MAX_BATCH:
+        raise ValueError(f"a batch of {shape[0]} states: K3 takes 1 to "
+                         f"{_MAX_BATCH}")
     named = [(n, getattr(state, n), _DTYPES[n]) for n in FIELDS]
     if maxgrad is not None:
         named.append(("kf_maxgrad", maxgrad, torch.float32))
@@ -122,7 +131,7 @@ def _check(state: DepthMapState, maxgrad: Optional[torch.Tensor] = None):
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if t.dim() != 2 or t.shape != shape:
+        if t.dim() not in (2, 3) or t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
         if not t.is_contiguous():
@@ -145,18 +154,19 @@ _SMOOTHED = ("idepth_smoothed", "var_smoothed", "blacklisted", "valid")
 def _launch(lib: ctypes.CDLL, state: DepthMapState,
             kf_maxgrad: Optional[torch.Tensor], cfg: ELLCConfig,
             remove_occlusions: bool, stream: int) -> DepthMapState:
-    """One launch of ``ellc_reg`` on ``stream``: with the fill when
-    ``kf_maxgrad`` is given (all seven planes written), else the
-    smoothing alone (four planes written)."""
+    """One launch of ``ellc_reg`` on ``stream`` over one state (H, W) or a
+    batch (B, H, W): with the fill when ``kf_maxgrad`` is given (all seven
+    planes written), else the smoothing alone (four planes written)."""
     fill = kf_maxgrad is not None
     out = {n: torch.empty_like(getattr(state, n))
            for n in (FIELDS if fill else _SMOOTHED)}
-    H, W = state.idepth.shape
+    B, H, W = (1, *state.idepth.shape) if state.idepth.dim() == 2 \
+        else state.idepth.shape
     err = lib.ellc_reg(
         *[_ptr(getattr(state, n)) for n in FIELDS],
         _ptr(kf_maxgrad) if fill else None,
         *[_ptr(out[n]) if n in out else None for n in FIELDS],
-        H, W, int(fill), int(remove_occlusions),
+        B, H, W, int(fill), int(remove_occlusions),
         cfg.min_abs_grad_decrease, cfg.min_blacklist,
         cfg.val_sum_min_for_create, cfg.val_sum_min_for_unblacklist,
         cfg.var_random_init, int(cfg.lsd_correct_hole_fill),

@@ -19,12 +19,15 @@ process with the state on the device:
 RA corrects only rotations; the odometry translations, in the drifting
 per-keyframe scale, are kept (perform_rotation_averaging_transition1.m:
 79-82).  Frames that end the stream short of an interval are tracked
-against the last keyframe without a new keyframe or RA.
+against the last keyframe without a new keyframe or RA.  With
+``do_sim3_refine`` the corrected trajectory is then refined once more:
+a Sim(3) pose graph over its keyframes, the odometry chain and the loop
+edges, solved by ``graph/ba.py`` (:func:`_sim3_refine_trajectory`).
 
 Two faults of the JAX package are not copied: a stream that ends exactly
 on a batch boundary does not call the tail tracker with no frames (which
 trips its assertion there), and the replay without rotations passes None,
-not zero rotations.  Sim(3) refinement (``do_sim3_refine``) is not ported.
+not zero rotations.
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ class LCResult:
     num_batches: int
     num_loop_edges: int
     loop_edges: list = dataclasses.field(default_factory=list)
+    # Sim(3)-refined world poses (cfg.do_sim3_refine), else None
+    sim3_world_poses: Optional[np.ndarray] = None
 
 
 def _track_batch(state: pipeline.PipelineState, frames: List[np.ndarray],
@@ -133,7 +138,7 @@ def _track_batch(state: pipeline.PipelineState, frames: List[np.ndarray],
             edges = closer.push_keyframe(
                 kf_id, snapshot.image, snapshot.kf_levels,
                 snapshot.weight_levels, world_global, snapshot.rescale,
-                snapshot.seeds)
+                snapshot.seeds, depth_state=snapshot.depth_state)
             rec.loop_rows += [[e.frame_id, e.matched_kf_id,
                                *e.pose_wrt_matched] for e in edges]
             timer("window", t0)
@@ -192,17 +197,16 @@ def run_ellc_lc(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
 
     ``stats``, when given, accumulates wall-clock seconds per phase:
     ``track`` (the GN batches, the loop window included), ``window`` (the
-    keyframe pushes: gates and rematches), ``ra``, ``replay`` and
-    ``tail``.  Writes ``poses_corrected.txt`` to ``out_dir``."""
-    if cfg.do_sim3_refine:
-        raise NotImplementedError("do_sim3_refine=True is not ported to "
-                                  "PyTorch yet")
+    keyframe pushes: gates and rematches), ``ra``, ``replay``, ``tail``
+    and ``sim3``.  Writes ``poses_corrected.txt`` to ``out_dir``, and
+    ``poses_sim3.txt`` with ``cfg.do_sim3_refine``."""
     timer = _Timer(stats)
     cfg = cfg.replace(do_loop_closure=True)
     # the replay feeds no loop window, so it accumulates no weights
-    replay_cfg = cfg.replace(do_loop_closure=False)
+    replay_cfg = cfg.replace(do_loop_closure=False,
+                             restore_connection=False)
     device = torch.device(device)
-    it = iter(frames)
+    it = pipeline.undistort_source(frames, cfg, device)
     state = pipeline.init_pipeline(
         next(it), cfg, device, generator=torch.Generator().manual_seed(seed))
     closer = closure.LoopCloser(cfg)
@@ -232,10 +236,10 @@ def run_ellc_lc(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
         # K-1 frames, so it takes one frame less than batch_props * K
         first = frame_id == 1
         want = batch_props * K - (1 if first else 0)
-        buf: List[np.ndarray] = []
+        buf: List[torch.Tensor] = []
         while len(buf) < want and frame_id + len(buf) < limit:
             try:
-                buf.append(np.asarray(next(it)))
+                buf.append(next(it))
             except StopIteration:
                 done = True
                 break
@@ -309,15 +313,66 @@ def run_ellc_lc(frames: Iterable[np.ndarray], cfg: ELLCConfig, device,
             track_tail(extra_frames)
             frame_id += len(extra_frames)
 
+    ids = np.asarray([f for f, _ in corrected], np.int64)
+    poses = np.asarray([p for _, p in corrected])
+    sim3_poses = None
+    if cfg.do_sim3_refine and len(ids) > K:
+        t0 = time.perf_counter()
+        sim3_poses = _sim3_refine_trajectory(ids, poses, closer.edges, cfg,
+                                             device)
+        timer("sim3", t0)
     if out_dir:
-        with ellc_io.PoseWriter(os.path.join(out_dir, "poses_corrected.txt")
-                                ) as w:
-            for fid, p in corrected:
-                w.write(fid, 0, p, 1.0, 0.0)
+        files = [("poses_corrected.txt", poses)]
+        if sim3_poses is not None:
+            files.append(("poses_sim3.txt", sim3_poses))
+        for name, ps in files:
+            with ellc_io.PoseWriter(os.path.join(out_dir, name)) as w:
+                for fid, p in zip(ids, ps):
+                    w.write(int(fid), 0, p, 1.0, 0.0)
 
-    return LCResult(world_poses=np.asarray([p for _, p in corrected]),
-                    frame_ids=np.asarray([f for f, _ in corrected], np.int64),
+    return LCResult(world_poses=poses, frame_ids=ids,
                     raw_world_poses=np.asarray([p for _, p in raw]),
                     num_batches=num_batches,
                     num_loop_edges=len(closer.edges),
-                    loop_edges=list(closer.edges))
+                    loop_edges=list(closer.edges),
+                    sim3_world_poses=sim3_poses)
+
+
+def _sim3_refine_trajectory(ids: np.ndarray, poses: np.ndarray,
+                            loop_edges, cfg: ELLCConfig, device
+                            ) -> Optional[np.ndarray]:
+    """The final Sim(3) refinement of a corrected trajectory: a pose graph
+    over the keyframes (ids divisible by K, main.cpp:404), with the
+    odometry chain and the loop edges between keyframes that are in it,
+    solved by ``ba.refine`` (``cfg.sim3_iters`` Gauss-Newton iterations)
+    on ``device``; every other frame then rides rigidly on the keyframe
+    before it, all in one batched compose.  None with fewer than three
+    keyframes.  One host read, at the end."""
+    from egomotion_with_local_loop_closures_tpu_torch.graph import ba, sim3
+
+    kf_mask = ids % cfg.keyframe_interval == 0
+    kf_idx = np.nonzero(kf_mask)[0]
+    if len(kf_idx) < 3:
+        return None
+    id2node = {int(f): k for k, f in enumerate(ids[kf_idx])}
+    # edge measurement: X_j = rel * X_i, rel = pose of frame j w.r.t. the
+    # matched keyframe i
+    lc = [(id2node[int(e.matched_kf_id)], id2node[int(e.frame_id)],
+           np.asarray(e.pose_wrt_matched, np.float32)) for e in loop_edges
+          if int(e.matched_kf_id) in id2node and int(e.frame_id) in id2node]
+    g = sim3.graph_from_trajectory(poses[kf_idx], np.ones(len(kf_idx)),
+                                   loop_edges=lc, device=device)
+    refined = ba.refine(g, num_iters=cfg.sim3_iters).nodes
+
+    src = torch.as_tensor(np.asarray(poses, np.float32), device=device)
+    kf_t = torch.as_tensor(kf_idx, device=device)
+    out = src.index_copy(0, kf_t, refined[:, :6])
+    # the keyframe each frame rides on: the last one at or before it
+    anchor = np.maximum.accumulate(np.where(kf_mask, np.arange(len(ids)), -1))
+    ride = np.nonzero(~kf_mask & (anchor >= 0))[0]
+    if len(ride):
+        r_t = torch.as_tensor(ride, device=device)
+        a_t = torch.as_tensor(anchor[ride], device=device)
+        out = out.index_copy(0, r_t, lie.compose(
+            lie.relative(src[r_t], src[a_t]), out[a_t]))
+    return out.cpu().numpy()

@@ -20,24 +20,26 @@ reads none of these config fields: ``use_window_warp``, ``warp_window``,
 ``stereo_pack_u8``, ``use_pallas_reg``.  The JAX settings that compute the
 same thing are ``config.PARITY_OVERRIDES``.
 
-With ``do_loop_closure`` each tracked frame also accumulates its GN
-weight images into the keyframe (``Keyframe.weight_acc``), and
-:func:`keyframe_step` returns the finalized old keyframe as a
-:class:`KeyframeSnapshot` for the loop window.  The LC replay tracks with
+With the loop window on (``do_loop_closure`` or ``restore_connection``)
+each tracked frame also accumulates its GN weight images into the
+keyframe (``Keyframe.weight_acc``), and :func:`keyframe_step` returns the
+finalized old keyframe, its depth state included, as a
+:class:`KeyframeSnapshot` for the window.  The LC replay tracks with
 ``cfg.max_iters_replay`` and seeds each frame's rotation from the
-rotation-averaged world pose (``init_rotation``).
+rotation-averaged world pose (``init_rotation``).  Connection recovery
+(``loop/recovery.py``) is driven by the runner, and undistortion by
+:func:`undistort_source`, the frame source of both runners.
 
-Outside the port's slice, and refused with ``NotImplementedError``:
-connection recovery (``restore_connection``) and undistortion
-(``do_undistortion``).  The JAX package's masked single-program intervals
-and chunked ``process_intervals`` exist to bound jit compiles; here the
-callers run K-1-frame, K-frame and tail intervals directly.
+The JAX package's masked single-program intervals and chunked
+``process_intervals`` exist to bound jit compiles; here ``run_sequence``
+steps frame by frame and LC mode runs K-1-frame, K-frame and tail
+intervals through :func:`process_interval` directly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +47,7 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.depth import (
     fusion, propagate, state as dstate, stereo)
-from egomotion_with_local_loop_closures_tpu_torch.geom import lie
+from egomotion_with_local_loop_closures_tpu_torch.geom import camera, lie
 from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
 from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
@@ -83,6 +85,9 @@ class KeyframeSnapshot:
     world_pose: torch.Tensor
     rescale: torch.Tensor
     seeds: torch.Tensor
+    # the keyframe's hypothesis state, for connection recovery
+    # (LoopFrame.h:33 this_currentDepthMap)
+    depth_state: dstate.DepthMapState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,14 +115,6 @@ class FrameOutput:
     oow_fraction: torch.Tensor     # always 0: the port samples exactly
 
 
-def check_supported(cfg: ELLCConfig) -> None:
-    """Refuse the features outside the port's slice."""
-    for name in ("restore_connection", "do_undistortion"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"{name}=True is not ported to PyTorch yet")
-
-
 def _image(image, device) -> torch.Tensor:
     """An (H, W) frame or map as a float32 tensor on ``device``."""
     if isinstance(image, torch.Tensor):
@@ -125,10 +122,24 @@ def _image(image, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(image, dtype=np.float32), device=device)
 
 
+def undistort_source(frames: Iterable, cfg: ELLCConfig, device
+                     ) -> Iterator[torch.Tensor]:
+    """The frames of a source as float32 tensors on ``device``,
+    undistorted when ``cfg.do_undistortion`` is set (cv::undistort on
+    every decoded frame, Frame.cpp:86-96)."""
+    for im in frames:
+        im = _image(im, device)
+        yield (camera.undistort_image(im, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                      cfg.distortion)
+               if cfg.do_undistortion else im)
+
+
 def _needs_window(cfg: ELLCConfig) -> bool:
-    """Keyframe snapshots and accumulated GN weights feed the loop window
-    (FLAG_DO_LOOP_CLOSURE)."""
-    return cfg.do_loop_closure
+    """Keyframe snapshots and accumulated GN weights feed the loop window,
+    for loop-closure edges (FLAG_DO_LOOP_CLOSURE) or for connection
+    recovery (FLAG_RESTORE_CONNECTION): both re-localize with the
+    constant-weight aligner."""
+    return cfg.do_loop_closure or cfg.restore_connection
 
 
 def _kf_levels(kf: Keyframe) -> Tuple[alignment.KeyframeLevel, ...]:
@@ -175,7 +186,6 @@ def init_pipeline(first_image, cfg: ELLCConfig, device,
     DepthPropagation.cpp:83-184).  ``generator`` (a CPU
     ``torch.Generator``) draws the inverse depths unless
     ``cfg.bootstrap_rng == "glibc"``; see ``depth.state.initialize_random``."""
-    check_supported(cfg)
     device = torch.device(device)
     image = _image(first_image, device)
     gx, gy = pyramid.gradients(image)
@@ -191,7 +201,6 @@ def init_from_depth(first_image, depth, var, world_pose, cfg: ELLCConfig,
                     device) -> PipelineState:
     """Start from a saved depth map (FLAG_REPLICATE_NEW_DEPTH replay path,
     DepthPropagation.cpp:90-137)."""
-    check_supported(cfg)
     device = torch.device(device)
     st = dstate.from_depth(_image(depth, device), _image(var, device))
     kf, st = make_keyframe(_image(first_image, device), st,
@@ -239,7 +248,8 @@ def finalize_snapshot(state: PipelineState) -> KeyframeSnapshot:
     return KeyframeSnapshot(image=kf.images[0], kf_levels=_kf_levels(kf),
                             weight_levels=tuple(a / n for a in kf.weight_acc),
                             world_pose=kf.world_pose, rescale=kf.rescale,
-                            seeds=dstate.seeds_percent(state.depth))
+                            seeds=dstate.seeds_percent(state.depth),
+                            depth_state=state.depth)
 
 
 def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
@@ -247,7 +257,6 @@ def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
                       ) -> Tuple[PipelineState, FrameOutput]:
     """One non-keyframe frame: track, then refine the KF depth map
     (main.cpp:330, 499-502)."""
-    check_supported(cfg)
     image = _image(image, state.device)
     pose, diag, cur = _track(state, image, cfg, replay, init_rotation)
     kf = state.kf
@@ -278,7 +287,6 @@ def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
     loop window on, also returns the old keyframe's snapshot, taken after
     its final regularization with this frame's weights accumulated (else
     None)."""
-    check_supported(cfg)
     image = _image(image, state.device)
     pose, diag, cur = _track(state, image, cfg, replay, init_rotation)
     kf_old = state.kf

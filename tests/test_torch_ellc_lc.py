@@ -124,10 +124,17 @@ def test_every_frame_gets_one_corrected_pose(frames, n, batches,
     assert np.isfinite(res.world_poses).all()
 
 
-def test_sim3_refinement_raises(frames):
-    with pytest.raises(NotImplementedError):
-        ellc_lc.run_ellc_lc(iter(frames[:3]), CFG.replace(do_sim3_refine=True),
-                            "cpu")
+def test_sim3_refinement_raises(frames, tmp_path):
+    """Sim(3) refinement runs now (against the JAX package:
+    tests/test_torch_sim3.py); a stream of fewer than K tracked frames
+    has no graph to refine, so it gives None and no poses_sim3.txt, and
+    raises nothing."""
+    stats = {}
+    res = ellc_lc.run_ellc_lc(iter(frames[:3]), CFG.replace(do_sim3_refine=True),
+                              "cpu", out_dir=str(tmp_path), stats=stats)
+    assert res.frame_ids.tolist() == [2, 3]
+    assert res.sim3_world_poses is None and "sim3" not in stats
+    assert sorted(os.listdir(tmp_path)) == ["poses_corrected.txt"]
 
 
 def test_cli_lc_on_image_directory(frames, tmp_path, capsys):

@@ -98,7 +98,7 @@ def port_run(frames, tmp_path_factory):
     out = tmp_path_factory.mktemp("run_sequence")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(closure.LoopCloser, "push_keyframe", recording(
-            closure.LoopCloser, pushes, lambda *a: a))
+            closure.LoopCloser, pushes, lambda *a, depth_state, match: a))
         res = runner.run_sequence(iter(frames), CFG, "cpu",
                                   out_dir=str(out))
     return res, pushes, out

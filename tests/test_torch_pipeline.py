@@ -158,17 +158,39 @@ def test_run_sequence_writes_reference_format(frames, tmp_path):
 
 @pytest.mark.parametrize("field", ["restore_connection", "do_undistortion"])
 def test_features_outside_the_slice_raise(frames, field):
-    with pytest.raises(NotImplementedError):
-        runner.run_sequence(iter(frames[:3]), CFG.replace(**{field: True}),
-                            "cpu")
+    """The two options that earlier slices refused now run: connection
+    recovery on a sequence that never loses tracking changes nothing,
+    and undistortion equals running on frames undistorted beforehand
+    (the recovery run itself: tests/test_torch_recovery.py)."""
+    from egomotion_with_local_loop_closures_tpu_torch.geom import camera
+    cfg = CFG.replace(**{field: True})
+    res = runner.run_sequence(iter(frames[:3]), cfg, "cpu")
+    if field == "restore_connection":
+        ref = runner.run_sequence(iter(frames[:3]), CFG, "cpu")
+        assert res.extra["recoveries"] == [] == res.extra["dropped_frames"]
+    else:
+        ref = runner.run_sequence(
+            (camera.undistort_image(torch.as_tensor(f), CFG.fx, CFG.fy,
+                                    CFG.cx, CFG.cy, CFG.distortion)
+             for f in frames[:3]), CFG, "cpu")
+        assert not np.array_equal(
+            res.world_poses, runner.run_sequence(iter(frames[:3]), CFG,
+                                                 "cpu").world_poses)
+    assert res.frame_ids.tolist() == [2, 3]
+    np.testing.assert_array_equal(res.world_poses, ref.world_poses)
+    np.testing.assert_array_equal(res.seeds, ref.seeds)
 
 
-def test_replay_and_checkpoints_raise(frames):
-    """Replay runs now (test_replay_step_matches_jax); checkpoints are
-    still outside the port's slice."""
-    with pytest.raises(NotImplementedError):
-        runner.run_sequence(iter(frames[:3]), CFG, "cpu",
-                            checkpoint_dir="ckpt")
+def test_replay_and_checkpoints_raise(frames, tmp_path):
+    """Replay runs (test_replay_step_matches_jax) and so do checkpoints:
+    one interval with checkpoint_every=1 saves the state at keyframe 8
+    (resume: tests/test_torch_checkpoint.py)."""
+    res = runner.run_sequence(iter(frames[:10]), CFG, "cpu",
+                              checkpoint_dir=str(tmp_path),
+                              checkpoint_every=1)
+    assert res.frame_ids.tolist() == list(range(2, 11))
+    assert sorted(os.listdir(tmp_path)) == [
+        "latest", "step_000000008.json", "step_000000008.npz"]
 
 
 def test_replay_step_matches_jax(frames, jax_run):
@@ -235,7 +257,10 @@ def test_runner_imports_without_jax():
             "runtime.cli, egomotion_with_local_loop_closures_tpu_torch."
             "loop.closure, egomotion_with_local_loop_closures_tpu_torch."
             "graph.rotation_averaging, egomotion_with_local_loop_closures_"
-            "tpu_torch.convert; print(sorted(m for m in sys.modules if m == "
+            "tpu_torch.convert, egomotion_with_local_loop_closures_tpu_torch."
+            "loop.recovery, egomotion_with_local_loop_closures_tpu_torch."
+            "runtime.checkpoint, egomotion_with_local_loop_closures_tpu_torch."
+            "graph.ba; print(sorted(m for m in sys.modules if m == "
             "'jax' or "
             "m.startswith(('jax.', 'egomotion_with_local_loop_closures_tpu.'"
             ")) or m == 'egomotion_with_local_loop_closures_tpu'))")

@@ -87,6 +87,19 @@ def border_planes(seed, shape=SHAPE):
 STATES = {"seeded": random_planes, "valid_border": border_planes}
 
 
+def stacked(shape, seed, device="cpu"):
+    """A batch of three states (seeded, valid-border, seeded with another
+    seed) stacked to (3, H, W) planes with their (3, H, W) max gradients,
+    and the three (state, maxgrad) pairs alone."""
+    pairs = [make(seed + k, shape) for k, make in
+             enumerate((random_planes, border_planes, random_planes))]
+    states = [(to_torch(p, device), torch.as_tensor(mg, device=device))
+              for p, mg in pairs]
+    st = DepthMapState(**{n: torch.stack([getattr(s, n) for s, _ in states])
+                          for n in FIELDS})
+    return st, torch.stack([mg for _, mg in states]), states
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's side of the comparisons."""
@@ -235,3 +248,42 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, occl, lsd, state):
     ref_r = propagate.regularize(st, cfg, remove_occlusions=occl)
     assert_states_equal(ref, got)
     assert_states_equal(ref_r, got_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(270, 480), (37, 53)])
+@pytest.mark.parametrize("lsd", [False, True])
+@pytest.mark.parametrize("occl", [False, True])
+def test_cuda_batch_matches_plain_per_state(cuda_device, shape, occl, lsd):
+    """B = 3 states in one launch of each wrapper, each held bit for bit
+    against the plain version on that state alone."""
+    st, mgt, states = stacked(shape, seed=23, device=cuda_device)
+    H, W = shape
+    cfg = ELLCConfig(rows=H, cols=W, lsd_correct_hole_fill=lsd)
+    reg_kernel.reset_launches()
+    got = reg_kernel.do_regularization(st, mgt, cfg, remove_occlusions=occl)
+    got_r = reg_kernel.regularize(st, cfg, remove_occlusions=occl)
+    torch.cuda.synchronize()
+    assert reg_kernel.launches == {"do_regularization": 1, "regularize": 1}
+    for b, (s_b, mg_b) in enumerate(states):
+        assert_states_equal(
+            propagate.do_regularization(s_b, mg_b, cfg, occl),
+            got.replace(**{n: getattr(got, n)[b] for n in FIELDS}))
+        assert_states_equal(
+            propagate.regularize(s_b, cfg, occl),
+            got_r.replace(**{n: getattr(got_r, n)[b] for n in FIELDS}))
+
+
+def test_plain_batch_equals_plain_per_state():
+    """The plain versions on (3, H, W) planes equal them state by state."""
+    st, mgt, states = stacked((37, 53), seed=29)
+    cfg = ELLCConfig(rows=37, cols=53)
+    got = propagate.do_regularization(st, mgt, cfg, True)
+    got_r = propagate.regularize(st, cfg, True)
+    for b, (s_b, mg_b) in enumerate(states):
+        for ref, out in ((propagate.do_regularization(s_b, mg_b, cfg, True),
+                          got), (propagate.regularize(s_b, cfg, True), got_r)):
+            for n in FIELDS:
+                torch.testing.assert_close(getattr(out, n)[b],
+                                           getattr(ref, n), rtol=0, atol=0,
+                                           equal_nan=True)

@@ -11,7 +11,8 @@ call of the emulated launch.  float32 arithmetic is IEEE on both sides
 must equal the plain version's.  This holds the kernel's indexing, halo,
 edge values and gates on the CPU, on ragged shapes and valid borders; that
 nvcc accepts the source and how the card runs it are checked on the card
-(``test_torch_reg_kernel.py -m cuda``, ``chip_smoke.py``).
+(``test_torch_reg_kernel.py -m cuda``, ``chip_smoke.py``).  A batch of
+states (the grid's z extent) must give each state what it gives alone.
 """
 
 import ctypes
@@ -27,7 +28,7 @@ from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
 from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
     FIELDS, DepthMapState)
 from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
-from test_torch_reg_kernel import border_planes, random_planes
+from test_torch_reg_kernel import border_planes, random_planes, stacked
 
 torch.set_num_threads(1)
 
@@ -57,20 +58,21 @@ typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 template <class F, class A>
 void emu_launch(F f, dim3 grid, dim3 block, const A& a) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(block.x * block.y);
-      g_bar = &bar;
-      std::vector<std::thread> ts;
-      for (unsigned ty = 0; ty < block.y; ++ty)
-        for (unsigned tx = 0; tx < block.x; ++tx)
-          ts.emplace_back([&, tx, ty] {
-            blockIdx = {bx, by, 0};
-            threadIdx = {tx, ty, 0};
-            f(a);
-          });
-      for (auto& t : ts) t.join();
-    }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(block.x * block.y);
+        g_bar = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned ty = 0; ty < block.y; ++ty)
+          for (unsigned tx = 0; tx < block.x; ++tx)
+            ts.emplace_back([&, tx, ty] {
+              blockIdx = {bx, by, bz};
+              threadIdx = {tx, ty, 0};
+              f(a);
+            });
+        for (auto& t : ts) t.join();
+      }
 }
 """
 LAUNCH = re.compile(r"(\w+<[^>]*>)<<<([^,]+), (dim3\([^)]*\)), 0, stream>>>"
@@ -122,3 +124,21 @@ def test_emulated_kernel_equals_plain(emulated, make, shape, lsd, occl):
                  reg_kernel._launch(emulated, st, None, cfg, occl, 0))
     assert (ref.valid & ~st.valid).any()          # holes filled
     assert (st.valid & ~ref.valid).any()          # pixels dropped
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (21, 100)])
+@pytest.mark.parametrize("occl", [False, True])
+def test_emulated_batch_equals_plain_per_state(emulated, shape, occl):
+    """B = 3 states (seeded, valid-border, seeded) in one launch: each
+    equals the plain version on that state alone, bit for bit."""
+    st, mgt, states = stacked(shape, seed=17)
+    H, W = shape
+    cfg = ELLCConfig(rows=H, cols=W)
+    got = reg_kernel._launch(emulated, st, mgt, cfg, occl, 0)
+    got_r = reg_kernel._launch(emulated, st, None, cfg, occl, 0)
+    for b, (s_b, mg_b) in enumerate(states):
+        assert_equal(propagate.do_regularization(s_b, mg_b, cfg, occl),
+                     got.replace(**{n: getattr(got, n)[b] for n in FIELDS}))
+        assert_equal(propagate.regularize(s_b, cfg, occl),
+                     got_r.replace(**{n: getattr(got_r, n)[b]
+                                      for n in FIELDS}))

@@ -30,11 +30,33 @@ is why ``tests/test_torch_loop.py`` and
 ``tests/test_torch_ellc_lc.py`` read the file instead of running the JAX
 package themselves).
 
+The LC run above also refines the corrected trajectory with Sim(3)
+(``do_sim3_refine``, which runs after the corrected poses and leaves them
+as they are) and writes the refined poses as ``sim3_world_poses``.
+
+Recovery (``--recovery``): runs the JAX package's ``runner.run_sequence``
+on the CPU with ``restore_connection`` under the parity config over the
+first 48 frames of ``reference_build/run_gn`` at 480x270, with frames 40
+and 41 replaced by a flat gray image (128): keyframe 40 is built on the
+flat frame with no seeds, so the next frames go through connection
+recovery.  It writes the tracked frames, the recoveries (with the
+recovered pose w.r.t. the matched keyframe), the dropped frames and the
+candidates of every recovery attempt to
+``tests/data/port_golden_recovery.json``.
+
+Recovery tests (``--recovery-test``): the same at 96x128 over 34
+integer-valued frames of the scene of ``tests/test_recovery.py`` (a slow
+sideways translation), frames 24 and 25 flat, into
+``tests/data/port_golden_recovery_test.json``; the frames and every
+keyframe snapshot pushed to the loop window before the first recovery
+(with its depth state) go to ``tests/data/port_recovery_test.npz`` so a
+test can hand the JAX package's window to the port.
+
 ``chip_smoke.py`` and the port's tests compare the port's runs with these
 files.
 
-Usage: python tools/make_port_golden.py [--lc | --lc-test] [--frames N]
-       [--out PATH]
+Usage: python tools/make_port_golden.py [--lc | --lc-test | --recovery |
+       --recovery-test] [--frames N] [--out PATH]
 """
 
 from __future__ import annotations
@@ -60,6 +82,15 @@ DEFAULT_LC_OUT = os.path.join(ROOT, "tests", "data", "port_golden_run_lc.json")
 LC_TEST_OUT = os.path.join(ROOT, "tests", "data", "port_golden_lc_test.json")
 LC_TEST_FRAMES = os.path.join(ROOT, "tests", "data", "port_lc_test_frames.npz")
 LC_TEST_N, LC_TEST_N_WINDOW = 44, 25
+RECOVERY_OUT = os.path.join(ROOT, "tests", "data", "port_golden_recovery.json")
+RECOVERY_TEST_OUT = os.path.join(ROOT, "tests", "data",
+                                 "port_golden_recovery_test.json")
+RECOVERY_TEST_NPZ = os.path.join(ROOT, "tests", "data",
+                                 "port_recovery_test.npz")
+# frame ids (1-based) replaced by a flat gray image, and the frame counts
+RECOVERY_FLAT, RECOVERY_N = (40, 41), 48
+RECOVERY_TEST_FLAT, RECOVERY_TEST_N = (24, 25), 34
+FLAT_GRAY = 128.0
 
 
 def _common(cfg, frames_file, n, source, overrides):
@@ -209,7 +240,8 @@ def golden_lc(n, PARITY_OVERRIDES):
     ellc_lc.closure.LoopCloser = RecordingCloser
     cfg = ELLCConfig().replace(**PARITY_OVERRIDES, do_loop_closure=True)
     frames = np.load(LC_FRAMES)["frames"][:n]
-    res = ellc_lc.run_ellc_lc(iter(frames), cfg, max_frames=n)
+    res = ellc_lc.run_ellc_lc(iter(frames), cfg.replace(do_sim3_refine=True),
+                              max_frames=n)
     edges = closers[0].edges
     golden = _common(cfg, LC_FRAMES, n, "egomotion_with_local_loop_closures_tpu"
                      " ellc_lc.run_ellc_lc on the CPU with max_frames = "
@@ -220,7 +252,9 @@ def golden_lc(n, PARITY_OVERRIDES):
         frame_ids=res.frame_ids.tolist(),
         world_poses=np.asarray(res.world_poses, np.float64).tolist(),
         raw_world_poses=np.asarray(res.raw_world_poses, np.float64).tolist(),
-        edges=_edges(edges))
+        edges=_edges(edges),
+        sim3_world_poses=np.asarray(res.sim3_world_poses,
+                                    np.float64).tolist())
     ours = {(int(e.frame_id), int(e.matched_kf_id)) for e in edges}
     ref = {(int(r[0]), int(r[1]))
            for r in np.atleast_2d(np.loadtxt(LC_EDGES))}
@@ -232,6 +266,144 @@ def golden_lc(n, PARITY_OVERRIDES):
     return golden
 
 
+def flat_frames(frames, flat_ids):
+    """``frames`` with the given 1-based frame ids replaced by a flat gray
+    image."""
+    frames = np.array(frames, np.float32)
+    for fid in flat_ids:
+        frames[fid - 1] = FLAT_GRAY
+    return frames
+
+
+def sideways_frames(cfg, n):
+    """Integer-valued frames of tests/test_recovery.py's scene with the
+    camera translating 0.004 a frame along x."""
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.utils import synthetic
+    scene = synthetic.make_room_scene(seed=3, depth=1.25, half_width=1.7,
+                                      half_height=1.15)
+    fx, fy, cx, cy = cfg.level_intrinsics(0)
+    return np.stack([np.round(np.asarray(synthetic.render(
+        scene, jnp.asarray([0, 0, 0, 0.004 * i, 0, 0], jnp.float32),
+        cfg.rows, cfg.cols, fx, fy, cx, cy)[0])) for i in range(n)]
+                    ).astype(np.float32)
+
+
+def run_recovery(frames, cfg):
+    """The JAX package's run_sequence with connection recovery on
+    ``frames``, recording every keyframe pushed to the loop window (with
+    its depth state) and every recovery attempt."""
+    from egomotion_with_local_loop_closures_tpu.loop import closure, recovery
+    from egomotion_with_local_loop_closures_tpu.runtime import runner
+
+    pushes, attempts = [], []
+    push, find = closure.LoopCloser.push_keyframe, recovery.find_connection
+
+    def recording_push(self, frame_id, image, kf_levels, weight_levels,
+                       world_pose, origin_pose, rescale, seeds, **kw):
+        pushes.append({"frame_id": int(frame_id), "image": image,
+                       "kf_levels": kf_levels, "weight_levels": weight_levels,
+                       "world_pose": world_pose, "rescale": rescale,
+                       "seeds": seeds, "depth_state": kw["depth_state"]})
+        return push(self, frame_id, image, kf_levels, weight_levels,
+                    world_pose, origin_pose, rescale, seeds, **kw)
+
+    def recording_find(closer, frame_id, image, cfg):
+        cands = [e.frame_id for e in reversed(closer.entries)
+                 if frame_id - e.frame_id > cfg.min_match_difference
+                 and e.depth_state is not None]
+        rec = find(closer, frame_id, image, cfg)
+        attempts.append({
+            "frame_id": int(frame_id), "candidates": cands,
+            "window": [e.frame_id for e in closer.entries],
+            "matched_kf_id": None if rec is None else int(rec.matched_kf_id),
+            "pose_wrt_matched": None if rec is None else np.asarray(
+                rec.pose_wrt_matched, np.float64).tolist(),
+            "world_pose": None if rec is None else np.asarray(
+                rec.world_pose, np.float64).tolist(),
+            "rescale": None if rec is None else float(rec.rescale),
+            "seeds": None if rec is None else float(rec.seeds)})
+        return rec
+
+    closure.LoopCloser.push_keyframe = recording_push
+    recovery.find_connection = recording_find
+    try:
+        res = runner.run_sequence(iter(frames), cfg)
+    finally:
+        closure.LoopCloser.push_keyframe = push
+        recovery.find_connection = find
+    golden = {
+        "frame_ids": res.frame_ids.tolist(), "kf_ids": res.kf_ids.tolist(),
+        "world_poses": np.asarray(res.world_poses, np.float64).tolist(),
+        "seeds": res.seeds.tolist(), "rescales": res.rescales.tolist(),
+        "recoveries": [{"frame_id": int(r["frame_id"]),
+                        "matched_kf_id": int(r["matched_kf_id"]),
+                        "seeds": float(r["seeds"])}
+                       for r in res.extra["recoveries"]],
+        "dropped_frames": [int(f) for f in res.extra["dropped_frames"]],
+        "attempts": attempts}
+    print(f"{len(res.frame_ids)} tracked frames; recoveries "
+          f"{[(r['frame_id'], r['matched_kf_id']) for r in golden['recoveries']]}"
+          f", dropped {golden['dropped_frames']}, attempts "
+          f"{[(a['frame_id'], a['candidates']) for a in attempts]}")
+    return golden, pushes
+
+
+def golden_recovery(PARITY_OVERRIDES):
+    from egomotion_with_local_loop_closures_tpu.config import ELLCConfig
+
+    overrides = dict(PARITY_OVERRIDES, restore_connection=True)
+    cfg = ELLCConfig().replace(**overrides)
+    frames = np.load(FRAMES)["frames"][:RECOVERY_N]
+    golden = _common(cfg, FRAMES, RECOVERY_N,
+                     "egomotion_with_local_loop_closures_tpu runner."
+                     "run_sequence with restore_connection on the CPU, "
+                     "tools/make_port_golden.py --recovery", overrides)
+    run, _ = run_recovery(flat_frames(frames, RECOVERY_FLAT), cfg)
+    golden.update(flat_frame_ids=list(RECOVERY_FLAT), flat_gray=FLAT_GRAY,
+                  **run)
+    return golden
+
+
+def golden_recovery_test(PARITY_OVERRIDES):
+    from egomotion_with_local_loop_closures_tpu.config import ELLCConfig
+
+    # tests/test_recovery.py's camera
+    overrides = dict(PARITY_OVERRIDES, rows=96, cols=128, fx=110.0,
+                     fy=110.0, cx=64.0, cy=48.0, restore_connection=True)
+    cfg = ELLCConfig().replace(**overrides)
+    frames = flat_frames(sideways_frames(cfg, RECOVERY_TEST_N),
+                         RECOVERY_TEST_FLAT)
+    assert frames.min() >= 0 and frames.max() <= 255
+    run, pushes = run_recovery(frames, cfg)
+    first = next(a for a in run["attempts"] if a["matched_kf_id"])
+    arrays = {"frames": frames.astype(np.uint8)}
+    window = [p for p in pushes if p["frame_id"] in first["window"]]
+    for k, p in enumerate(window):
+        for l, lv in enumerate(p["kf_levels"]):
+            for f in ("image", "depth", "var"):
+                arrays[f"push{k}.kf_levels.{l}.{f}"] = np.asarray(
+                    getattr(lv, f))
+        for l, w in enumerate(p["weight_levels"]):
+            arrays[f"push{k}.weight_levels.{l}"] = np.asarray(w)
+        for f in ("image", "world_pose", "rescale", "seeds"):
+            arrays[f"push{k}.{f}"] = np.asarray(p[f], np.float32)
+        arrays[f"push{k}.frame_id"] = np.asarray(p["frame_id"])
+        for f, v in p["depth_state"]._asdict().items():
+            arrays[f"push{k}.depth_state.{f}"] = np.asarray(v)
+    np.savez_compressed(RECOVERY_TEST_NPZ, **arrays)
+    golden = {"source": "egomotion_with_local_loop_closures_tpu runner."
+                        "run_sequence with restore_connection on the CPU, "
+                        "tools/make_port_golden.py --recovery-test",
+              "arrays_file": os.path.relpath(RECOVERY_TEST_NPZ, ROOT),
+              "frames_sha256": sha256(frames), "num_input_frames":
+              RECOVERY_TEST_N, "config_overrides": overrides,
+              "flat_frame_ids": list(RECOVERY_TEST_FLAT),
+              "flat_gray": FLAT_GRAY,
+              "window_frame_ids": [p["frame_id"] for p in window], **run}
+    return golden
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -239,6 +411,10 @@ def main(argv=None) -> int:
                       help="the LC bootstrap golden file instead of GN mode")
     mode.add_argument("--lc-test", action="store_true",
                       help="the 96x128 LC test frames and golden file")
+    mode.add_argument("--recovery", action="store_true",
+                      help="the 480x270 connection-recovery golden file")
+    mode.add_argument("--recovery-test", action="store_true",
+                      help="the 96x128 recovery test arrays and golden file")
     ap.add_argument("--frames", type=int, default=None,
                     help="input frames (default 17, or 80 with --lc)")
     ap.add_argument("--out", default=None)
@@ -253,6 +429,12 @@ def main(argv=None) -> int:
     if args.lc_test:
         golden = golden_lc_test(PARITY_OVERRIDES)
         out = args.out or LC_TEST_OUT
+    elif args.recovery:
+        golden = golden_recovery(PARITY_OVERRIDES)
+        out = args.out or RECOVERY_OUT
+    elif args.recovery_test:
+        golden = golden_recovery_test(PARITY_OVERRIDES)
+        out = args.out or RECOVERY_TEST_OUT
     elif args.lc:
         golden = golden_lc(args.frames or 80, PARITY_OVERRIDES)
         out = args.out or DEFAULT_LC_OUT
