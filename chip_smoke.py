@@ -59,9 +59,33 @@ Phases, each announced on its own line:
    --recovery): the same recoveries (frame, matched keyframe), dropped
    frames and frame ids, the recovered pose w.r.t. its keyframe within
    4.4e-3 rad in rotation, the recovery's seeds% within 2 points, every
-   pose finite, K3's launch counts equal to a hand count of the schedule.
+   pose finite, K3's launch counts equal to a hand count of the schedule;
+9. batched videos: parallel.sharded.batched_init and four
+   batched_process_interval calls (7, 8, 8 and 8 frames) over V = 8
+   videos of run_gn, video v being frames 64v..64v+31, at 480x270 under
+   the parity config.  K3 runs once per call for all eight videos, so its
+   launch counts are one video's, 35 and 5; video 0 (frames 0..31) is
+   held against the golden file as in phase 5, and every video against
+   the port's single-video process_interval on the card over its first
+   interval (init and 7 frames: poses within 2e-3, the JAX package's vmap
+   tolerance, seeds% within 2 points); every pose finite.  The JAX
+   package's run of each video alone
+   (tests/data/port_golden_batched_run_gn.json, tools/make_port_golden.py
+   --batched) sorts the videos: one whose seeds% stays above 2 points at
+   every interval's end there is held to it over its first interval with
+   phase 5's limits and must keep seeds% above 0 at every interval's end.
+   The others start or end on a map of a few hundred pixels (videos 5-7
+   of this run: a map that empties does not come back without connection
+   recovery, and the pose of a sparse map moves with the summation order),
+   and are printed.  K3 is held state by
+   state on the run's (8, 270, 480) states and timed on them as phase 3
+   times its batch of 20.  Then the same four intervals at V = 1, 2, 4
+   and 8 (the run above is the last): wall time, aggregate tracked
+   frames/s and torch.cuda.max_memory_allocated beside
+   utils/footprint.py's prediction from its V = 1 and 2 probes, which
+   must hold within 25 % at V = 4 and 8; check_fits(8) must pass.
 
-Each driven path (phases 4, 6, 7 and 8) sets K3's launch counts to 0 just
+Each driven path (phases 4, 6, 7, 8 and 9) sets K3's launch counts to 0 just
 before it and reads them just after.  The last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -94,6 +118,8 @@ LC_EDGES = os.path.join(ROOT, "reference_build", "run_lc", "outputs",
                         "matchframes_globalopt.txt")
 RECOVERY_GOLDEN = os.path.join(ROOT, "tests", "data",
                                "port_golden_recovery.json")
+BATCHED_GOLDEN = os.path.join(ROOT, "tests", "data",
+                              "port_golden_batched_run_gn.json")
 MAIN_FRAMES = 129
 LC_BOOTSTRAP_FRAMES, LC_FRAMES = 80, 144
 # K3 launches of the two LC runs, counted by hand from the frame schedule
@@ -117,6 +143,17 @@ LC_MODE_LAUNCHES = {"do_regularization": 322, "regularize": 37}
 RECOVERY_LAUNCHES = {"do_regularization": 53, "regularize": 9}
 # connection recovery's batch at its largest: the loop window's cap
 RECOVERY_BATCH = 20
+# Phase 9: V videos of run_gn, video v from frame BATCH_STRIDE * v on, four
+# intervals (the first K-1 frames after the init frame).  K3 launches, one
+# video's count whatever V: the init launches one regularize; 6 + 7 + 7 + 7
+# = 27 track_refine steps one do_regularization each; 4 keyframe steps two
+# and one regularize each: 27 + 2 x 4 = 35 and 1 + 4 = 5.
+BATCH_VIDEOS, BATCH_STRIDE, BATCH_INTERVALS = 8, 64, (7, 8, 8, 8)
+BATCH_SWEEP = (1, 2, 4, 8)
+BATCH_LAUNCHES = {"do_regularization": 35, "regularize": 5}
+# the JAX package's tolerance for vmap against serial
+# (tests/test_parallel.py), and the footprint prediction's
+BATCH_POSE_TOL, FOOTPRINT_TOL = 2e-3, 0.25
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -346,7 +383,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     for need in (os.path.join(ROOT, PKG, "__init__.py"), FRAMES, GOLDEN,
-                 LC_GOLDEN, LC_EDGES, RECOVERY_GOLDEN):
+                 LC_GOLDEN, LC_EDGES, RECOVERY_GOLDEN, BATCHED_GOLDEN):
         if not os.path.exists(need):
             print(f"chip_smoke: {need} is missing: run from a checkout of "
                   f"the repository", file=sys.stderr)
@@ -361,8 +398,10 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, io as ellc_io, pipeline, runner)
+    from egomotion_with_local_loop_closures_tpu_torch.utils import footprint
     check(os.path.dirname(os.path.abspath(port.__file__))
           == os.path.join(ROOT, PKG), "the port imported from this checkout")
     check("jax" not in sys.modules, "jax stays unimported")
@@ -757,10 +796,142 @@ def main() -> int:
         check(d_rot8 <= 4.4e-3, "recovered rotation matches the golden file")
         check(d_seeds8 <= 2.0, "recovery seeds% match the golden file")
 
+    n_per = 1 + sum(BATCH_INTERVALS)
+    with open(BATCHED_GOLDEN) as f:
+        b_golden = json.load(f)
+    check(b_golden["stride"] == BATCH_STRIDE
+          and tuple(b_golden["intervals"]) == BATCH_INTERVALS
+          and len(b_golden["videos"]) == BATCH_VIDEOS,
+          "the batched golden file covers phase 9's videos")
+    phase(f"9 batched videos: batched_init and {len(BATCH_INTERVALS)} "
+          f"batched_process_interval calls over {BATCH_VIDEOS} videos of "
+          f"run_gn ({n_per} frames each, from frame {BATCH_STRIDE}v) on cuda")
+    vids = np.stack([frames[BATCH_STRIDE * v:BATCH_STRIDE * v + n_per]
+                     for v in range(BATCH_VIDEOS)])
+    t0 = time.perf_counter()
+    predicted = {V: footprint.interval_footprint(V, cfg, dev)
+                 for V in BATCH_SWEEP}
+    print(f"footprint probes (V = 1 and 2, one interval each) in "
+          f"{time.perf_counter() - t0:.3f} s; "
+          f"{footprint.check_fits(BATCH_VIDEOS, cfg, dev).describe()}")
+
+    def batched_run(V):
+        """batched_init and the intervals over the first V videos: (final
+        states, per-interval outputs, wall s, peak bytes above the bytes
+        allocated before it)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        states = sharded.batched_init(vids[:V, 0], cfg, dev)
+        outs, start = [], 1
+        for n in BATCH_INTERVALS:
+            states, o = sharded.batched_process_interval(
+                states, vids[:V, start:start + n], cfg)
+            outs.append(o)
+            start += n
+        torch.cuda.synchronize()
+        return (states, outs, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - base)
+
+    sweep = {}
+    for V in BATCH_SWEEP:
+        if V == BATCH_VIDEOS:
+            reg_kernel.reset_launches()
+        states9, outs9, wall9, peak9 = batched_run(V)
+        if V == BATCH_VIDEOS:
+            launches9 = dict(reg_kernel.launches)
+        pred = predicted[V].peak_bytes
+        sweep[V] = (wall9, V * (n_per - 1) / wall9, peak9, pred)
+        print(f"V={V}: {V * (n_per - 1)} tracked frames in {wall9:.3f} s, "
+              f"{V * (n_per - 1) / wall9:.3f} aggregate frames/s; peak "
+              f"{peak9 / 2**20:.1f} MiB, predicted {pred / 2**20:.1f} MiB "
+              f"({100 * (peak9 / pred - 1):+.1f} %); on {gpu}")
+        if V in (4, 8):
+            check(abs(peak9 / pred - 1) <= FOOTPRINT_TOL,
+                  f"the footprint prediction holds within 25 % at V={V}")
+        if V != BATCH_VIDEOS:
+            del states9, outs9
+    print(f"K3 launches {launches9}, expected {BATCH_LAUNCHES} (one "
+          f"video's count for {BATCH_VIDEOS} videos)")
+    check(launches9 == BATCH_LAUNCHES, "the videos share each K3 launch")
+    poses9 = torch.cat([o.pose_wrt_world for o in outs9], 1).cpu().numpy()
+    seeds9 = torch.cat([o.seeds for o in outs9], 1).cpu().numpy()
+    check(poses9.shape == (BATCH_VIDEOS, n_per - 1, 6), "batched outputs")
+    check(bool(np.isfinite(poses9).all()), "batched poses finite")
+    ends = np.cumsum(BATCH_INTERVALS) - 1
+    n1 = BATCH_INTERVALS[0]
+    for v, g in enumerate(b_golden["videos"]):
+        g_seeds = np.asarray(g["seeds"])
+        d_p = float(np.abs(poses9[v, :n1]
+                           - np.asarray(g["pose_wrt_world"])[:n1]).max())
+        d_s = float(np.abs(seeds9[v, :n1] - g_seeds[:n1]).max())
+        dense = bool((g_seeds[ends] > SEEDS_TOL).all())
+        print(f"video {v} (frames {BATCH_STRIDE * v}..): seeds% at the "
+              f"interval ends {np.round(seeds9[v, ends], 3).tolist()}, the "
+              f"JAX package's {np.round(g_seeds[ends], 3).tolist()}; first "
+              f"interval against it: max |pose diff| {d_p:.3g}, max |seeds% "
+              f"diff| {d_s:.3g} (held to {POSE_TOL} / {SEEDS_TOL} and seeds% "
+              f"> 0 at every end: {dense})")
+        if dense:
+            check(d_p <= POSE_TOL and d_s <= SEEDS_TOL,
+                  f"video {v} matches the JAX package's run of it")
+            check(bool((seeds9[v, ends] > 0).all()),
+                  f"video {v} keeps seeds at each interval's end, as the "
+                  f"JAX package's run of it does")
+    # video 0 is frames 0..31 of run_gn: the golden file's frames 2..17
+    n_g = len(golden["frame_ids"])
+    first9 = np.asarray(golden["frame_ids"]) <= cfg.keyframe_interval
+    d_pose0 = np.abs(poses9[0, :n_g] - np.asarray(golden["world_poses"]))
+    d_seeds0 = np.abs(seeds9[0, :n_g] - np.asarray(golden["seeds"]))
+    print(f"video 0 against the golden file: max |pose diff| first interval "
+          f"{d_pose0[first9].max():.3g} (tol {POSE_TOL}), all {n_g} frames "
+          f"{d_pose0.max():.3g}; max |seeds% diff| {d_seeds0.max():.3g} (tol "
+          f"{SEEDS_TOL})")
+    check(d_pose0[first9].max() <= POSE_TOL and d_seeds0.max() <= SEEDS_TOL,
+          "video 0 matches the golden file")
+    d_single = []
+    for v in range(BATCH_VIDEOS):
+        st1 = pipeline.init_pipeline(vids[v, 0], cfg, dev)
+        _, o1, _ = pipeline.process_interval(st1, list(vids[v, 1:1 + n1]),
+                                             cfg)
+        d_single.append((
+            float(np.abs(o1.pose_wrt_world.cpu().numpy()
+                         - poses9[v, :n1]).max()),
+            float(np.abs(o1.seeds.cpu().numpy() - seeds9[v, :n1]).max())))
+    print(f"each video against its single-video run, first interval: max "
+          f"|pose diff| {max(d for d, _ in d_single):.3g} (tol "
+          f"{BATCH_POSE_TOL}), max |seeds% diff| "
+          f"{max(d for _, d in d_single):.3g} (tol {SEEDS_TOL}); per video "
+          f"{[f'{d:.2g}' for d, _ in d_single]}")
+    check(all(d <= BATCH_POSE_TOL and e <= SEEDS_TOL for d, e in d_single),
+          "every video matches its single-video run")
+    batch9 = (states9.depth, states9.kf.maxgrad)
+    for occl in (False, True):
+        got = reg_kernel.do_regularization(*batch9, cfg, occl)
+        got_r = reg_kernel.regularize(batch9[0], cfg, occl)
+        torch.cuda.synchronize()
+        errs = [(compare(propagate.do_regularization(
+            one_of(batch9[0], b), batch9[1][b], cfg, occl), one_of(got, b),
+            FIELDS), compare(propagate.regularize(one_of(batch9[0], b), cfg,
+                                                  occl), one_of(got_r, b),
+                             FIELDS)) for b in range(BATCH_VIDEOS)]
+        worst["do_regularization"] = max(
+            [worst["do_regularization"]] + [e for e, _ in errs])
+        worst["regularize"] = max([worst["regularize"]]
+                                  + [e for _, e in errs])
+        print(f"K3 on the {BATCH_VIDEOS} videos' states, remove_occlusions="
+              f"{occl}: each state equal bit for bit to the plain version "
+              f"alone (max abs err {max(e for e, _ in errs):.3g} / "
+              f"{max(e for _, e in errs):.3g})")
+    timed_videos = timing(f"on the batch of {BATCH_VIDEOS} videos' states "
+                          f"at 270x480", *batch9)
+
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
     by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
-               "lc_mode": launches7, "recovery": launches8}
+               "lc_mode": launches7, "recovery": launches8,
+               "batched_videos": launches9}
     print(json.dumps({"kernels": [
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
@@ -771,7 +942,12 @@ def main() -> int:
          "batched": {"states": RECOVERY_BATCH, "ms": timed_batch[name][0],
                      "plain_ms": timed_batch[name][1],
                      "bound_ms": timed_batch[name][2],
-                     "bound_by": timed_batch[name][3]}}
+                     "bound_by": timed_batch[name][3]},
+         "batched_videos": {"states": BATCH_VIDEOS,
+                            "ms": timed_videos[name][0],
+                            "plain_ms": timed_videos[name][1],
+                            "bound_ms": timed_videos[name][2],
+                            "bound_by": timed_videos[name][3]}}
         for name in ("do_regularization", "regularize")]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ test can start both implementations from the same state at any frame, or
 feed one keyframe snapshot to both loop closers.  A snapshot that carries
 its keyframe's depth state (the JAX package's connection-recovery window)
 brings it along, so the JAX window can be handed to the port's
-``loop/recovery.find_connection``.
+``loop/recovery.find_connection``.  A state stacked over videos (the JAX
+package's ``parallel.sharded.batched_init``) converts both ways as it is,
+every array keeping its leading video axis: the port's batched pipeline
+(``parallel/sharded.py``) takes it.
 """
 
 from __future__ import annotations
@@ -71,7 +74,9 @@ def to_port(tree, device):
     if "kf" not in tree:
         return _depth_state(tree, device)
     kf = tree["kf"]
-    levels = {k: tuple(_tensor(a, device) for a in kf[k])
+    # weight_acc is empty without the loop window, and a flattened tree
+    # may leave it out
+    levels = {k: tuple(_tensor(a, device) for a in kf.get(k, ()))
               for k in ("images", "depths", "vars_", "weight_acc")}
     return PipelineState(
         kf=Keyframe(**levels,

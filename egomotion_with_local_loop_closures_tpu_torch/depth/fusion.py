@@ -15,18 +15,19 @@ import torch
 
 def fuse_level(depth: torch.Tensor, var: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fusion step: (H, W) -> (H//2, W//2)."""
-    H, W = depth.shape
+    """One fusion step: (..., H, W) -> (..., H//2, W//2)."""
+    H, W = depth.shape[-2:]
+    lead = depth.shape[:-2]
     H2, W2 = H // 2, W // 2
-    d = depth[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2)
-    v = var[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2)
+    d = depth[..., : H2 * 2, : W2 * 2].reshape(lead + (H2, 2, W2, 2))
+    v = var[..., : H2 * 2, : W2 * 2].reshape(lead + (H2, 2, W2, 2))
     valid = v > 0.0
     ivar = torch.where(valid, 1.0 / torch.where(valid, v, 1.0), 0.0)
     inv_d = torch.where(
         valid, 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12), 0.0)
-    ivar_sum = ivar.sum(dim=(1, 3))
-    idepth_sum = (ivar * inv_d).sum(dim=(1, 3))
-    num = valid.sum(dim=(1, 3)).to(depth.dtype)
+    ivar_sum = ivar.sum(dim=(-3, -1))
+    idepth_sum = (ivar * inv_d).sum(dim=(-3, -1))
+    num = valid.sum(dim=(-3, -1)).to(depth.dtype)
     any_valid = num > 0
     depth_out = torch.where(
         any_valid, ivar_sum / torch.where(any_valid, idepth_sum, 1.0), 0.0)
@@ -38,7 +39,8 @@ def fuse_level(depth: torch.Tensor, var: torch.Tensor
 def build_depth_var_pyramid(depth0: torch.Tensor, var0: torch.Tensor,
                             num_levels: int
                             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Full pyramid [level0..levelN-1]; level 0 is passed through."""
+    """Full pyramid [level0..levelN-1] of one map (H, W) or a stack
+    (..., H, W); level 0 is passed through."""
     depths, vars_ = [depth0], [var0]
     for _ in range(num_levels - 1):
         d, v = fuse_level(depths[-1], vars_[-1])

@@ -19,7 +19,8 @@ tensors on the CPU.  The per-tap expressions below are the ones the
 kernel evaluates, in the same order (dy outer, dx inner, -2..2).
 
 Every function here also takes a batch of states, planes (B, H, W): the
-connection-recovery trials, one per loop-window candidate.  The shifts
+connection-recovery trials, one per loop-window candidate, or the videos
+of the batched pipeline.  The shifts
 move only the last two dimensions, and :func:`propagate` merges each
 candidate into its own B-th of one flat (B*H*W) target space, so a batch
 gives each candidate what it would give alone.
@@ -52,8 +53,11 @@ def propagate(state: DepthMapState,
     """Propagate hypotheses from the old KF into the new KF's pixel grid;
     ``pose_new_wrt_old``: P_new = exp(xi) P_old (DepthPropagation.cpp:1020).
 
-    For B candidates at once, ``state`` and ``old_kf_image`` are (B, H, W)
-    and ``pose_new_wrt_old`` is (B, 6); the new keyframe is shared."""
+    For B states at once, ``state`` and ``old_kf_image`` are (B, H, W)
+    and ``pose_new_wrt_old`` is (B, 6).  The new keyframe
+    (``new_kf_image``, ``new_kf_maxgrad``) is either shared, (H, W), as
+    for connection recovery's candidates, or one per state, (B, H, W), as
+    for the videos of the batched pipeline."""
     H, W = old_kf_image.shape[-2:]
     lead = old_kf_image.shape[:-2]
     dev = old_kf_image.device

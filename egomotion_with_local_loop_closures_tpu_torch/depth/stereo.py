@@ -18,6 +18,11 @@ walk is plain PyTorch here; it is the second kernel to write by hand (K2).
 Error codes (DepthPropagation.cpp:395-396): 0 success, -1 out of bounds,
 -2 not found / ambiguous / negative depth, -3 error too big, -4 invalid
 epipolar geometry.
+
+Every function also takes V videos at once (the batched pipeline): images
+and states (V, H, W), poses (V, 6).  Each video's pose blocks broadcast as
+(V, 1, 1) against the pixel axes, and the walk keeps its step axis first,
+(S + 4, V, H, W).
 """
 
 from __future__ import annotations
@@ -40,6 +45,12 @@ class StereoResult(NamedTuple):
     err: torch.Tensor        # best SSD error
 
 
+def _px(a: torch.Tensor) -> torch.Tensor:
+    """A per-video scalar (or matrix entry) as (..., 1, 1) against the
+    pixel axes."""
+    return a[..., None, None]
+
+
 def _set_code(code: torch.Tensor, cond: torch.Tensor, val: int
               ) -> torch.Tensor:
     """First failure wins: only overwrite where still 0."""
@@ -52,17 +63,18 @@ def epl_direction(kf_image: torch.Tensor, t_kf_from_cur: torch.Tensor,
     """Normalized epipolar direction per KF pixel + pass mask
     (makeAndCheckEPL, DepthPropagation.cpp:311-384), with the raw +-1
     gradient (no 0.5 factor, :347-348)."""
-    H, W = kf_image.shape
+    H, W = kf_image.shape[-2:]
     x, y = camera.pixel_grid(H, W, device=kf_image.device)
-    epx = -cfg.fx * t_kf_from_cur[0] + t_kf_from_cur[2] * (x - cfg.cx)
-    epy = -cfg.fy * t_kf_from_cur[1] + t_kf_from_cur[2] * (y - cfg.cy)
+    tx, ty, tz = (_px(t_kf_from_cur[..., i]) for i in range(3))
+    epx = -cfg.fx * tx + tz * (x - cfg.cx)
+    epy = -cfg.fy * ty + tz * (y - cfg.cy)
     ok = ~torch.isnan(epx + epy)
     len2 = epx * epx + epy * epy
     ok = ok & (len2 >= cfg.min_epl_length_squared)
     gx = torch.zeros_like(kf_image)
-    gx[:, 1:-1] = kf_image[:, 2:] - kf_image[:, :-2]
+    gx[..., 1:-1] = kf_image[..., 2:] - kf_image[..., :-2]
     gy = torch.zeros_like(kf_image)
-    gy[1:-1, :] = kf_image[2:, :] - kf_image[:-2, :]
+    gy[..., 1:-1, :] = kf_image[..., 2:, :] - kf_image[..., :-2, :]
     dot = gx * epx + gy * epy
     grad2 = dot * dot / torch.where(len2 > 0, len2, 1.0)
     ok = ok & (grad2 >= cfg.min_epl_grad_squared)
@@ -76,10 +88,10 @@ def epl_direction(kf_image: torch.Tensor, t_kf_from_cur: torch.Tensor,
 
 def _pose_blocks(pose_cur_wrt_kf: torch.Tensor, cfg: ELLCConfig):
     T = lie.exp_se3(pose_cur_wrt_kf)
-    R, t = T[:3, :3], T[:3, 3]                    # cur <- kf
+    R, t = T[..., :3, :3], T[..., :3, 3]          # cur <- kf
     K = camera.intrinsics_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
                                  device=T.device)
-    return R, t, K @ R, K @ t
+    return R, t, lie.mm(K, R), lie.mm(K, t[..., None])[..., 0]
 
 
 def _pinf_rescale(x, y, prior_idepth, KR, Kt, cfg):
@@ -87,12 +99,12 @@ def _pinf_rescale(x, y, prior_idepth, KR, Kt, cfg):
     reference's 'rescale' (doLineStereo :401-405)."""
     kx = (x - cfg.cx) / cfg.fx
     ky = (y - cfg.cy) / cfg.fy
-    pinf = torch.stack([KR[0, 0] * kx + KR[0, 1] * ky + KR[0, 2],
-                        KR[1, 0] * kx + KR[1, 1] * ky + KR[1, 2],
-                        KR[2, 0] * kx + KR[2, 1] * ky + KR[2, 2]], dim=0)
+    kr = [[_px(KR[..., i, j]) for j in range(3)] for i in range(3)]
+    pinf = torch.stack([kr[i][0] * kx + kr[i][1] * ky + kr[i][2]
+                        for i in range(3)], dim=0)
     prior_safe = torch.where(torch.abs(prior_idepth) > 1e-12, prior_idepth,
                              1e-12)
-    preal_z = pinf[2] / prior_safe + Kt[2]
+    preal_z = pinf[2] / prior_safe + _px(Kt[..., 2])
     rescale = preal_z * prior_idepth              # (:405)
     return kx, ky, pinf, rescale
 
@@ -114,7 +126,7 @@ def _segment_setup(x, y, epxn, epyn, min_idepth, prior_idepth, max_idepth,
                    pose_cur_wrt_kf, H: int, W: int,
                    cfg: ELLCConfig) -> SegmentSetup:
     """Segment construction + pre-checks of doLineStereo (:397-553)."""
-    P = x.shape
+    P = torch.broadcast_shapes(x.shape, prior_idepth.shape)
     _, _, KR, Kt = _pose_blocks(pose_cur_wrt_kf, cfg)
     code = torch.zeros(P, dtype=torch.int32, device=x.device)
 
@@ -131,11 +143,12 @@ def _segment_setup(x, y, epxn, epyn, min_idepth, prior_idepth, max_idepth,
     code = _set_code(code, ~((rescale > 0.7) & (rescale < 1.4)), -1)  # (:424)
 
     # close / far endpoints in the current image (:438-458)
-    kt = Kt.reshape((3,) + (1,) * len(P))
+    kt = _px(Kt.movedim(-1, 0))                   # (3, ..., 1, 1)
     pclose = pinf + kt * max_idepth
     fix = pclose[2] < 0.001
+    kt2 = kt[2]
     max_id2 = torch.where(fix, (0.001 - pinf[2]) / torch.where(
-        torch.abs(Kt[2]) > 1e-12, Kt[2], 1e-12), max_idepth)
+        torch.abs(kt2) > 1e-12, kt2, 1e-12), max_idepth)
     pclose = pinf + kt * max_id2
     pclose_z = torch.where(torch.abs(pclose[2]) > 1e-12, pclose[2], 1e-12)
     pclose = pclose / pclose_z
@@ -239,9 +252,11 @@ def _walk(x, y, real, epxn, epyn, gix, giy, seg: SegmentSetup,
     is the 5-tap KF descriptor of shape (5,) + P."""
     fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
     eps = cfg.division_eps
-    P = x.shape
+    P = seg.pfar_x.shape
     dev = x.device
     R, t, _, _ = _pose_blocks(pose_cur_wrt_kf, cfg)
+    R = [[_px(R[..., i, j]) for j in range(3)] for i in range(3)]
+    t = [_px(t[..., i]) for i in range(3)]
     kx = (x - cx) / fx
     ky = (y - cy) / fy
     code = seg.code
@@ -343,9 +358,9 @@ def _walk(x, y, real, epxn, epyn, gix, giy, seg: SegmentSetup,
             torch.clamp_min(g_along, 0.0)) * 20.0, -3)
 
     # ---- triangulation (:824-853) ----
-    dot0 = R[0, 0] * kx + R[0, 1] * ky + R[0, 2]
-    dot1 = R[1, 0] * kx + R[1, 1] * ky + R[1, 2]
-    dot2 = R[2, 0] * kx + R[2, 1] * ky + R[2, 2]
+    dot0 = R[0][0] * kx + R[0][1] * ky + R[0][2]
+    dot1 = R[1][0] * kx + R[1][1] * ky + R[1][2]
+    dot2 = R[2][0] * kx + R[2][1] * ky + R[2][2]
     use_x = incx * incx > incy * incy
     old_x = best_x / fx - cx / fx
     old_y = best_y / fy - cy / fy
@@ -401,7 +416,7 @@ def line_stereo(kf_image: torch.Tensor,
                 cfg: ELLCConfig) -> StereoResult:
     """Dense doLineStereo (DepthPropagation.cpp:397-885) for every pixel;
     gating is the caller's job, failures are reported via ``code``."""
-    H, W = kf_image.shape
+    H, W = kf_image.shape[-2:]
     x, y = camera.pixel_grid(H, W, device=kf_image.device)
     seg = _segment_setup(x, y, epxn, epyn, min_idepth, prior_idepth,
                          max_idepth, pose_cur_wrt_kf, H, W, cfg)
@@ -425,7 +440,7 @@ def observe(state: DepthMapState,
             cfg: ELLCConfig) -> ObserveResult:
     """One depth-refinement pass of the current frame against the keyframe
     (observeDepthRow + create/update, DepthPropagation.cpp:191-999)."""
-    H, W = kf_image.shape
+    H, W = kf_image.shape[-2:]
     dev = kf_image.device
     b = cfg.border
     x, y = camera.pixel_grid(H, W, device=dev)
@@ -441,7 +456,8 @@ def observe(state: DepthMapState,
     do_pixel = active & ~kill & ~skip
 
     T = lie.exp_se3(pose_cur_wrt_kf)
-    t_kf_from_cur = -T[:3, :3].T @ T[:3, 3]
+    t_kf_from_cur = -lie.mm(T[..., :3, :3].transpose(-1, -2),
+                            T[..., :3, 3, None])[..., 0]
     epxn, epyn, epl_ok = epl_direction(kf_image, t_kf_from_cur, cfg)
     run = do_pixel & epl_ok
 
@@ -522,5 +538,5 @@ def observe(state: DepthMapState,
                         idepth_smoothed=smoothed_i, var_smoothed=smoothed_v,
                         validity=validity, blacklisted=blk, valid=valid)
     return ObserveResult(state=out,
-                         num_created=torch.sum(create_ok),
-                         num_updated=torch.sum(u_success))
+                         num_created=torch.sum(create_ok, dim=(-2, -1)),
+                         num_updated=torch.sum(u_success, dim=(-2, -1)))

@@ -51,8 +51,21 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device).expand(like.shape)
 
 
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for small matrices over broadcast leading dimensions,
+    always as one batched product (``torch.bmm``), also for a single pair.
+    PyTorch multiplies the small matrices of a batch on the CPU in one
+    fixed loop, so each pose of a stack (the videos of the batched
+    pipeline) gets the bits it gets alone; a 2-D ``mm`` would go to BLAS,
+    whose bits differ."""
+    if a.dim() == 2 and b.dim() == 2:
+        return torch.bmm(a[None], b[None])[0]
+    # with leading dimensions, matmul multiplies by bmm
+    return a @ b
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (M @ v.unsqueeze(-1)).squeeze(-1)
+    return mm(M, v.unsqueeze(-1)).squeeze(-1)
 
 
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
@@ -60,7 +73,7 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(w * w, dim=-1)
     A, B, _ = _sinc_coeffs(theta2)
     W = hat_so3(w)
-    W2 = W @ W
+    W2 = mm(W, W)
     return _eye3(W) + A[..., None, None] * W + B[..., None, None] * W2
 
 
@@ -76,7 +89,7 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(w * w, dim=-1)
     A, B, C = _sinc_coeffs(theta2)
     W = hat_so3(w)
-    W2 = W @ W
+    W2 = mm(W, W)
     eye = _eye3(W)
     R = eye + A[..., None, None] * W + B[..., None, None] * W2
     V = eye + B[..., None, None] * W + C[..., None, None] * W2
@@ -100,7 +113,7 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     D = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
                     (1.0 - A / (2.0 * B)) / t2s)
     W = hat_so3(w)
-    W2 = W @ W
+    W2 = mm(W, W)
     Vinv = _eye3(W) - 0.5 * W + D[..., None, None] * W2
     return torch.cat([w, _matvec(Vinv, t)], dim=-1)
 
@@ -118,13 +131,13 @@ def inv_se3_matrix(T: torch.Tensor) -> torch.Tensor:
 def compose(xi_1wrt2: torch.Tensor, xi_2wrt3: torch.Tensor) -> torch.Tensor:
     """log(exp(xi_1wrt2) @ exp(xi_2wrt3)) (frame::concatenateRelativePose,
     src/Frame.cpp:503-530)."""
-    return log_se3(exp_se3(xi_1wrt2) @ exp_se3(xi_2wrt3))
+    return log_se3(mm(exp_se3(xi_1wrt2), exp_se3(xi_2wrt3)))
 
 
 def relative(xi_1wrt0: torch.Tensor, xi_2wrt0: torch.Tensor) -> torch.Tensor:
     """log(exp(xi_1wrt0) @ exp(xi_2wrt0)^-1) (frame::concatenateOriginPose,
     src/Frame.cpp:534-562)."""
-    return log_se3(exp_se3(xi_1wrt0) @ inv_se3_matrix(exp_se3(xi_2wrt0)))
+    return log_se3(mm(exp_se3(xi_1wrt0), inv_se3_matrix(exp_se3(xi_2wrt0))))
 
 
 def inverse(xi: torch.Tensor) -> torch.Tensor:

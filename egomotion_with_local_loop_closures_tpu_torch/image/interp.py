@@ -6,10 +6,16 @@ Port of ``bilinear`` and ``bilinear_fill`` from
 outside the image contributes 0, and a sample is out of bounds only when
 all four corners are outside.  The TPU's window sampler and packed
 gathers have no counterpart here: the port samples exactly.
+
+An image may carry leading axes, (..., H, W): a stack of images, one per
+video of a batched pipeline.  Image ``b`` is then sampled at the
+coordinates of its own slice, the gather reading the flat stack from
+element ``b*H*W`` on.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -24,11 +30,15 @@ def _to_index(v: torch.Tensor, n: int) -> torch.Tensor:
 
 def bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample ``img`` (H, W) at float coords ``x``, ``y`` (any shape).
+    """Sample ``img`` (H, W) at float coords ``x``, ``y`` (any shape), or a
+    stack of images (..., H, W) at coordinates whose shape ends in the
+    stack's leading axes and two point axes, e.g. images (V, H, W) at (V,
+    h, w) or (S, V, h, w) points.
 
     Returns ``(value, in_bounds)``; ``in_bounds`` is False only when all
     four corners are outside (Frame.h:267-270)."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx = x - x0
@@ -39,10 +49,16 @@ def bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     x1i = _to_index(torch.ceil(x), W)
     y1i = _to_index(torch.ceil(y), H)
     flat = img.reshape(-1)
+    # image b of a stack starts at element b*H*W of the flat stack
+    first = (torch.arange(math.prod(lead), device=img.device,
+                          dtype=torch.int64).reshape(lead + (1, 1)) * (H * W)
+             if lead else None)
 
     def corner(xi, yi):
         ok = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        if first is not None:
+            idx = first + idx
         v = flat[idx.reshape(-1).long()].reshape(idx.shape)
         return torch.where(ok, v, 0.0), ok
 

@@ -34,6 +34,11 @@ The JAX package's masked single-program intervals and chunked
 ``process_intervals`` exist to bound jit compiles; here ``run_sequence``
 steps frame by frame and LC mode runs K-1-frame, K-frame and tail
 intervals through :func:`process_interval` directly.
+
+Every step also advances V videos at once when its state carries a
+leading video axis (every tensor (V, ...), built by
+``parallel.sharded.batched_init``) and its frames are (V, H, W): the same
+calls and launches as one video, each on V videos' data.
 """
 
 from __future__ import annotations
@@ -92,6 +97,8 @@ class KeyframeSnapshot:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineState:
+    """One video's state; in a batched state every tensor has a leading
+    video axis, (V, ...)."""
     kf: Keyframe
     depth: dstate.DepthMapState
     prev_wrt_kf: torch.Tensor      # (6,) pose of frame t-1 w.r.t. the KF
@@ -116,7 +123,8 @@ class FrameOutput:
 
 
 def _image(image, device) -> torch.Tensor:
-    """An (H, W) frame or map as a float32 tensor on ``device``."""
+    """An (H, W) frame or map (or a stack of them) as a float32 tensor on
+    ``device``."""
     if isinstance(image, torch.Tensor):
         return image.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(image, dtype=np.float32), device=device)
@@ -168,15 +176,18 @@ def make_keyframe(image: torch.Tensor, st: dstate.DepthMapState,
                   rescale=rescale.to(torch.float32),
                   weight_acc=(tuple(torch.zeros_like(i) for i in imgs)
                               if _needs_window(cfg) else ()),
-                  weight_count=torch.zeros((), device=image.device))
+                  weight_count=torch.zeros(image.shape[:-2],
+                                           device=image.device))
     return _refresh_kf_depth(kf, st, cfg)
 
 
-def _fresh_state(kf: Keyframe, st: dstate.DepthMapState,
-                 device) -> PipelineState:
+def _fresh_state(kf: Keyframe, st: dstate.DepthMapState) -> PipelineState:
+    lead = kf.rescale.shape
     return PipelineState(kf=kf, depth=st,
-                         prev_wrt_kf=torch.zeros(6, device=device),
-                         global_scale=torch.ones((), device=device))
+                         prev_wrt_kf=torch.zeros(lead + (6,),
+                                                 device=kf.rescale.device),
+                         global_scale=torch.ones(lead,
+                                                 device=kf.rescale.device))
 
 
 def init_pipeline(first_image, cfg: ELLCConfig, device,
@@ -185,16 +196,20 @@ def init_pipeline(first_image, cfg: ELLCConfig, device,
     """Frame 1: random depth init on the first keyframe (main.cpp:228-236,
     DepthPropagation.cpp:83-184).  ``generator`` (a CPU
     ``torch.Generator``) draws the inverse depths unless
-    ``cfg.bootstrap_rng == "glibc"``; see ``depth.state.initialize_random``."""
+    ``cfg.bootstrap_rng == "glibc"``; see ``depth.state.initialize_random``.
+
+    Given V first frames (V, H, W) and a sequence of V generators (or
+    None), it initializes V videos at once (``parallel.sharded``)."""
     device = torch.device(device)
     image = _image(first_image, device)
+    lead = image.shape[:-2]
     gx, gy = pyramid.gradients(image)
     st = dstate.initialize_random(generator,
                                   pyramid.max_abs_gradient(gx, gy), cfg)
     st = reg_kernel.regularize(st, cfg)
-    kf, st = make_keyframe(image, st, torch.zeros(6, device=device),
-                           torch.ones((), device=device), cfg)
-    return _fresh_state(kf, st, device)
+    kf, st = make_keyframe(image, st, torch.zeros(lead + (6,), device=device),
+                           torch.ones(lead, device=device), cfg)
+    return _fresh_state(kf, st)
 
 
 def init_from_depth(first_image, depth, var, world_pose, cfg: ELLCConfig,
@@ -206,7 +221,7 @@ def init_from_depth(first_image, depth, var, world_pose, cfg: ELLCConfig,
     kf, st = make_keyframe(_image(first_image, device), st,
                            _image(world_pose, device),
                            torch.ones((), device=device), cfg)
-    return _fresh_state(kf, st, device)
+    return _fresh_state(kf, st)
 
 
 def _track(state: PipelineState, image: torch.Tensor, cfg: ELLCConfig,
@@ -219,7 +234,7 @@ def _track(state: PipelineState, image: torch.Tensor, cfg: ELLCConfig,
     if init_rotation is not None:
         rot_wrt_kf = lie.relative(_image(init_rotation, state.device),
                                   state.kf.world_pose)
-        pose0 = torch.cat([rot_wrt_kf[:3], pose0[3:]])
+        pose0 = torch.cat([rot_wrt_kf[..., :3], pose0[..., 3:]], dim=-1)
     cur = alignment.make_current_levels(
         pyramid.build_pyramid(image, cfg.num_levels))
     iters = cfg.max_iters_replay if replay else cfg.max_iters
@@ -244,7 +259,7 @@ def finalize_snapshot(state: PipelineState) -> KeyframeSnapshot:
     """Average the accumulated weights (finaliseWeights, Frame.cpp:678-695)
     and package the active keyframe for the loop-closure window."""
     kf = state.kf
-    n = torch.clamp_min(kf.weight_count, 1.0)
+    n = torch.clamp_min(kf.weight_count, 1.0)[..., None, None]
     return KeyframeSnapshot(image=kf.images[0], kf_levels=_kf_levels(kf),
                             weight_levels=tuple(a / n for a in kf.weight_acc),
                             world_pose=kf.world_pose, rescale=kf.rescale,
@@ -310,7 +325,7 @@ def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
     new_world = lie.compose(pose, kf_old.world_pose)
     kf, st = make_keyframe(image, st, new_world, rescale, cfg)
     new_state = PipelineState(
-        kf=kf, depth=st, prev_wrt_kf=torch.zeros(6, device=state.device),
+        kf=kf, depth=st, prev_wrt_kf=torch.zeros_like(pose),
         global_scale=state.global_scale * rescale)
     out = FrameOutput(pose_wrt_kf=pose, pose_wrt_world=new_world,
                       rescale=kf_old.rescale, seeds=dstate.seeds_percent(st),
@@ -321,9 +336,11 @@ def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
 
 
 def stack_outputs(outs) -> FrameOutput:
-    """Per-frame outputs -> one FrameOutput with a leading frame axis."""
+    """Per-frame outputs -> one FrameOutput with a frame axis: leading,
+    (K, ...), or after the video axis of a batched run, (V, K, ...)."""
+    dim = outs[0].seeds.dim()
     return FrameOutput(**{
-        f.name: torch.stack([getattr(o, f.name) for o in outs])
+        f.name: torch.stack([getattr(o, f.name) for o in outs], dim=dim)
         for f in dataclasses.fields(FrameOutput)})
 
 
@@ -333,7 +350,8 @@ def process_interval(state: PipelineState, images, cfg: ELLCConfig,
                                 Optional[KeyframeSnapshot]]:
     """One keyframe interval: track+refine over all frames but the last,
     then the keyframe step on the last.  ``images`` is a sequence of
-    (H, W) frames (K of them, or K-1 for a sequence's first interval);
+    (H, W) frames, or of (V, H, W) frames for a batched state (K of them,
+    or K-1 for a sequence's first interval);
     ``init_rotations``, if given, holds one RA-corrected world pose per
     frame (the LC replay).  Returns the new state, the stacked per-frame
     outputs and the old keyframe's snapshot (None without the loop

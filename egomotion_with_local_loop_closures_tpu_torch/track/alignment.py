@@ -16,7 +16,10 @@ Port of the gather path (``window=None``) of
 
 The loop-closure rematch uses the constant-weight (inverse-compositional)
 aligner, :func:`align_const_weight`, batched over a leading candidate
-axis in place of the JAX package's ``vmap``.
+axis in place of the JAX package's ``vmap``.  :func:`align` likewise
+tracks V videos at once (the batched pipeline, ``parallel/sharded.py``):
+keyframe and current levels (V, H, W), poses (V, 6), one 6x6 system and
+one freeze mask per video.
 
 The linearize-and-reduce of :func:`_gn_quantities` (K1) and the
 constant-weight iteration of :func:`gn_level_const_weight` (K5, the same
@@ -26,6 +29,7 @@ kernels to write by hand once the port has a benchmark cell.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -69,15 +73,21 @@ def _pixel_terms(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
                  intr: Tuple[float, float, float, float], cfg: ELLCConfig):
     """Warp every template pixel into the current frame at ``pose``:
     returns the current gradients sampled there, the residual, the GN
-    weight, the used-pixel mask and the template terms (u, v, 1/d)."""
+    weight, the used-pixel mask and the template terms (u, v, 1/d).
+
+    For V videos at once every level field is (V, H, W) and ``pose`` is
+    (V, 6): each video's pose moves its own template."""
     fx, fy, cx, cy = intr
-    Hh, Ww = kf.image.shape
+    Hh, Ww = kf.image.shape[-2:]
     x, y = camera.pixel_grid(Hh, Ww, device=kf.image.device)
     mask = kf.depth > 0.0
 
     T = lie.exp_se3(pose)
     P = camera.backproject(x, y, kf.depth, fx, fy, cx, cy)
-    Pt = P @ T[:3, :3].T + T[:3, 3]
+    # P R^T + t, one (H*W, 3) x (3, 3) product per video
+    Pt = (P.reshape(pose.shape[:-1] + (-1, 3))
+          @ T[..., :3, :3].transpose(-1, -2)
+          + T[..., None, :3, 3]).reshape(P.shape)
     wx, wy, _ = camera.project(Pt, fx, fy, cx, cy, eps=1e-10)
 
     warped, in_bounds = interp.bilinear(cur.image, wx, wy)
@@ -91,7 +101,7 @@ def _pixel_terms(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
 
     # variance-propagated weights (PixelWisePyramid.cpp:341-358)
     px, py, pz = Pt[..., 0], Pt[..., 1], Pt[..., 2]
-    tx, ty, tz = T[0, 3], T[1, 3], T[2, 3]
+    tx, ty, tz = (T[..., i, 3, None, None] for i in range(3))
     gxs = fx * gradx
     gys = fy * grady
     pz2d = torch.where(mask, pz * pz * inv_d, 1.0)
@@ -124,19 +134,23 @@ def _steepest_descent(gradx, grady, u, v, inv_d, fx, fy) -> torch.Tensor:
 def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
                    intr: Tuple[float, float, float, float],
                    cfg: ELLCConfig):
-    """One linearization: returns (H 6x6, g 6, energy, valid_count)."""
+    """One linearization: returns (H 6x6, g 6, energy, valid_count), each
+    with the pose's leading axes (one system per video)."""
     fx, fy = intr[0], intr[1]
+    lead = pose.shape[:-1]
     gradx, grady, residual, weight, used, (u, v, inv_d) = _pixel_terms(
         kf, cur, pose, intr, cfg)
-    J = _steepest_descent(gradx, grady, u, v, inv_d, fx, fy).reshape(-1, 6)
-    weight = weight.reshape(-1)
-    r = residual.reshape(-1)
-    Jw = J * weight[:, None]
-    Hmat = Jw.T @ J
-    g = Jw.T @ r
-    energy = torch.sum(weight * r * r)
-    valid = torch.sum(used.to(torch.float32))
-    return Hmat, g, energy, valid
+    J = _steepest_descent(gradx, grady, u, v, inv_d, fx, fy).reshape(
+        lead + (-1, 6))
+    weight = weight.reshape(lead + (-1,))
+    r = residual.reshape(lead + (-1,))
+    # H = J^T w J and g = J^T w r in one (6, N) x (N, 7) product per
+    # video, a batched product for V videos
+    M = (J * weight[..., None]).transpose(-1, -2) @ torch.cat(
+        [J, r[..., None]], dim=-1)
+    energy = torch.sum(weight * r * r, dim=-1)
+    valid = torch.sum(used.to(torch.float32), dim=(-2, -1))
+    return M[..., :6], M[..., 6], energy, valid
 
 
 def weight_image(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
@@ -244,30 +258,36 @@ def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,
     """``num_iters`` GN updates at one level with the reference's early-out
     as a freeze mask: every iteration linearizes, and a converged (or
     failed) state keeps its values.  Returns (pose, weighted_pose,
-    iters_used, (energy, valid_count)) from the last live linearization."""
+    iters_used, (energy, valid_count)) from the last live linearization.
+
+    ``pose0`` is (6,), or (V, 6) for V videos whose level fields are
+    (V, H, W); each video has its own freeze mask, so one video's
+    convergence or failed step never stops another."""
     intr = cfg.level_intrinsics(level)
     dev = pose0.device
+    lead = pose0.shape[:-1]
     term_w = torch.tensor(cfg.termination_weights, dtype=pose0.dtype,
                           device=dev)
     eye = 1e-12 * torch.eye(6, dtype=pose0.dtype, device=dev)
     pose = pose0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    wp_last = torch.full((), float("inf"), dtype=pose0.dtype, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    energy = torch.zeros((), dtype=pose0.dtype, device=dev)
-    valid = torch.zeros((), dtype=pose0.dtype, device=dev)
+    done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    wp_last = torch.full(lead, float("inf"), dtype=pose0.dtype, device=dev)
+    iters = torch.zeros(lead, dtype=torch.int32, device=dev)
+    energy = torch.zeros(lead, dtype=pose0.dtype, device=dev)
+    valid = torch.zeros(lead, dtype=pose0.dtype, device=dev)
     for _ in range(num_iters):
         Hmat, g, e, n = _gn_quantities(kf, cur, pose, intr, cfg)
         delta = -linear.solve_spd(Hmat + eye, g)
         # a singular system gives NaN, a near-singular one an astronomical
         # step; OpenCV's inv() returns zero there (PixelWisePyramid.cpp:451),
-        # so the reference applies a zero update
-        ok = torch.all(torch.isfinite(delta)) & (torch.max(torch.abs(delta))
-                                                 < 1e3)
-        delta = torch.where(ok, delta, 0.0)
+        # so the reference applies a zero update.  Reduced over each
+        # video's own step only.
+        ok = (torch.all(torch.isfinite(delta), dim=-1)
+              & (torch.amax(torch.abs(delta), dim=-1) < 1e3))
+        delta = torch.where(ok[..., None], delta, 0.0)
         new_pose = lie.compose(delta, pose)
-        wp = torch.sum(torch.abs(delta * term_w))
-        pose = torch.where(done, pose, new_pose)
+        wp = torch.sum(torch.abs(delta * term_w), dim=-1)
+        pose = torch.where(done[..., None], pose, new_pose)
         wp_last = torch.where(done, wp_last, wp)
         iters = torch.where(done, iters, iters + 1)
         energy = torch.where(done, energy, e)
@@ -284,8 +304,9 @@ def align(kf_levels: Tuple[KeyframeLevel, ...],
           ) -> Tuple[torch.Tensor, AlignDiagnostics]:
     """Coarse-to-fine alignment of the current frame against the keyframe
     (GetImagePoseEstimate, ImageFunc.cpp:150-299).  ``pose0`` is the
-    initial guess of the current frame w.r.t. the keyframe.  Diagnostics
-    come from the finest level's last live linearization."""
+    initial guess of the current frame w.r.t. the keyframe, (6,), or (V, 6)
+    for V videos whose levels are (V, H, W).  Diagnostics come from the
+    finest level's last live linearization, one per video."""
     if max_iters is None:
         max_iters = cfg.max_iters
     pose = pose0
@@ -302,9 +323,9 @@ def align(kf_levels: Tuple[KeyframeLevel, ...],
     energy, valid = stats0
     diag = AlignDiagnostics(
         weighted_pose=wp,
-        iters_used=torch.stack(iters_used[::-1]),
+        iters_used=torch.stack(iters_used[::-1], dim=-1),
         final_energy=energy,
-        valid_fraction=valid / kf_levels[0].image.numel(),
+        valid_fraction=valid / math.prod(kf_levels[0].image.shape[-2:]),
         oow_fraction=torch.zeros_like(energy),
     )
     return pose, diag

@@ -52,11 +52,32 @@ keyframe snapshot pushed to the loop window before the first recovery
 (with its depth state) go to ``tests/data/port_recovery_test.npz`` so a
 test can hand the JAX package's window to the port.
 
+Batched videos (``--batched``): the reference of ``chip_smoke.py``'s phase
+9.  Runs the JAX package on the CPU under the parity config (glibc
+bootstrap) on each of 8 videos of ``reference_build/run_gn`` at 480x270,
+video v being frames 64v..64v+31: ``pipeline.init_pipeline`` and four
+``process_interval`` calls (7, 8, 8 and 8 frames), one video at a time,
+and writes every video's per-frame world poses, seeds% and rescale
+factors to ``tests/data/port_golden_batched_run_gn.json`` (about 4
+minutes on a CPU).
+
+Batched tests (``--batched-test``): runs the JAX package's multi-video
+path, ``parallel.sharded.batched_init`` and two
+``batched_process_interval`` calls (7 and 8 frames), on a 3-device CPU
+mesh (``--xla_force_host_platform_device_count=3``, set before jax is
+imported) at ``TEST_CONFIG`` under the parity config with the glibc
+bootstrap.  Video ``v`` is 16 frames of ``tests/data/port_lc_test_frames.npz``
+from frame 14v on.  The init state's arrays go to
+``tests/data/port_batched_test.npz`` under their field paths
+(``kf.images.0``, ``depth.valid``, ...), and each interval's outputs to
+``tests/data/port_golden_batched_test.json``.
+
 ``chip_smoke.py`` and the port's tests compare the port's runs with these
 files.
 
 Usage: python tools/make_port_golden.py [--lc | --lc-test | --recovery |
-       --recovery-test] [--frames N] [--out PATH]
+       --recovery-test | --batched | --batched-test] [--frames N]
+       [--out PATH]
 """
 
 from __future__ import annotations
@@ -87,6 +108,16 @@ RECOVERY_TEST_OUT = os.path.join(ROOT, "tests", "data",
                                  "port_golden_recovery_test.json")
 RECOVERY_TEST_NPZ = os.path.join(ROOT, "tests", "data",
                                  "port_recovery_test.npz")
+BATCHED_OUT = os.path.join(ROOT, "tests", "data",
+                           "port_golden_batched_run_gn.json")
+# chip_smoke.py phase 9: video v is frames BATCHED_STRIDE * v onwards
+BATCHED_VIDEOS, BATCHED_STRIDE, BATCHED_INTERVALS = 8, 64, (7, 8, 8, 8)
+BATCHED_TEST_OUT = os.path.join(ROOT, "tests", "data",
+                                "port_golden_batched_test.json")
+BATCHED_TEST_NPZ = os.path.join(ROOT, "tests", "data",
+                                "port_batched_test.npz")
+# first frame of each video in the LC test frames, frames a video
+BATCHED_TEST_OFFSETS, BATCHED_TEST_N = (0, 14, 28), 16
 # frame ids (1-based) replaced by a flat gray image, and the frame counts
 RECOVERY_FLAT, RECOVERY_N = (40, 41), 48
 RECOVERY_TEST_FLAT, RECOVERY_TEST_N = (24, 25), 34
@@ -404,6 +435,96 @@ def golden_recovery_test(PARITY_OVERRIDES):
     return golden
 
 
+def field_paths(tree, prefix=""):
+    """Nested dicts and lists of arrays -> {field path: array}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(field_paths(v, f"{prefix}{k}."))
+    return out
+
+
+def golden_batched(PARITY_OVERRIDES):
+    import jax
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.config import ELLCConfig
+    from egomotion_with_local_loop_closures_tpu.runtime import pipeline
+
+    cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
+    frames = np.load(FRAMES)["frames"].astype(np.float32)
+    n = 1 + sum(BATCHED_INTERVALS)
+    videos = []
+    for v in range(BATCHED_VIDEOS):
+        f = frames[BATCHED_STRIDE * v:BATCHED_STRIDE * v + n]
+        state = pipeline.init_pipeline(jnp.asarray(f[0]),
+                                       jax.random.PRNGKey(v), cfg)
+        outs, start = [], 1
+        for k in BATCHED_INTERVALS:
+            state, o, _ = pipeline.process_interval(
+                state, jnp.asarray(f[start:start + k]), cfg)
+            outs.append(o)
+            start += k
+        videos.append({k: np.concatenate([np.asarray(getattr(o, k),
+                                                     np.float64)
+                                          for o in outs]).tolist()
+                       for k in ("pose_wrt_world", "seeds", "rescale")})
+        ends = np.cumsum(BATCHED_INTERVALS) - 1
+        print(f"video {v}: seeds% at the interval ends "
+              f"{[round(videos[-1]['seeds'][e], 3) for e in ends]}")
+    golden = _common(cfg, FRAMES, len(frames),
+                     "egomotion_with_local_loop_closures_tpu pipeline."
+                     "init_pipeline and process_interval on the CPU, one "
+                     "video at a time, tools/make_port_golden.py --batched",
+                     PARITY_OVERRIDES)
+    golden.update(stride=BATCHED_STRIDE, intervals=list(BATCHED_INTERVALS),
+                  videos=videos)
+    return golden
+
+
+def golden_batched_test(PARITY_OVERRIDES):
+    import jax
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.config import TEST_CONFIG
+    from egomotion_with_local_loop_closures_tpu.parallel import (mesh,
+                                                                 sharded)
+    from egomotion_with_local_loop_closures_tpu_torch.convert import as_tree
+
+    cfg = TEST_CONFIG.replace(**PARITY_OVERRIDES)
+    frames = np.load(LC_TEST_FRAMES)["frames"].astype(np.float32)
+    V = len(BATCHED_TEST_OFFSETS)
+    batch = np.stack([frames[o:o + BATCHED_TEST_N]
+                      for o in BATCHED_TEST_OFFSETS])
+    m = mesh.make_mesh(video=V, pixel=1)
+    keys = jax.random.split(jax.random.PRNGKey(0), V)
+    states = sharded.batched_init(jnp.asarray(batch[:, 0]), keys, cfg, m)
+    np.savez_compressed(BATCHED_TEST_NPZ, **field_paths(as_tree(states)))
+    K = cfg.keyframe_interval
+    intervals, start = [], 1
+    for n in (K - 1, K):
+        states, outs = sharded.batched_process_interval(
+            states, jnp.asarray(batch[:, start:start + n]), cfg, m)
+        intervals.append({k: np.asarray(v, np.float64).tolist()
+                          for k, v in as_tree(outs).items()})
+        start += n
+    print(f"{V} videos, intervals of {K - 1} and {K} frames; last seeds% "
+          f"{[round(s[-1], 3) for s in intervals[-1]['seeds']]}")
+    return {"source": "egomotion_with_local_loop_closures_tpu "
+                      "parallel.sharded on a 3-device CPU mesh at TEST_CONFIG,"
+                      " tools/make_port_golden.py --batched-test",
+            "frames_file": os.path.relpath(LC_TEST_FRAMES, ROOT),
+            "frames_sha256": sha256(frames),
+            "arrays_file": os.path.relpath(BATCHED_TEST_NPZ, ROOT),
+            "offsets": list(BATCHED_TEST_OFFSETS),
+            "frames_per_video": BATCHED_TEST_N,
+            "config_overrides": PARITY_OVERRIDES,
+            "intervals": intervals}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -415,12 +536,22 @@ def main(argv=None) -> int:
                       help="the 480x270 connection-recovery golden file")
     mode.add_argument("--recovery-test", action="store_true",
                       help="the 96x128 recovery test arrays and golden file")
+    mode.add_argument("--batched", action="store_true",
+                      help="the 480x270 eight-video golden file")
+    mode.add_argument("--batched-test", action="store_true",
+                      help="the 96x128 multi-video test arrays and golden "
+                           "file")
     ap.add_argument("--frames", type=int, default=None,
                     help="input frames (default 17, or 80 with --lc)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     sys.path.insert(0, ROOT)
+    if args.batched_test:
+        # one CPU device per video, before jax is imported
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count="
+                                   f"{len(BATCHED_TEST_OFFSETS)}").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     from egomotion_with_local_loop_closures_tpu_torch.config import (
@@ -435,6 +566,12 @@ def main(argv=None) -> int:
     elif args.recovery_test:
         golden = golden_recovery_test(PARITY_OVERRIDES)
         out = args.out or RECOVERY_TEST_OUT
+    elif args.batched:
+        golden = golden_batched(PARITY_OVERRIDES)
+        out = args.out or BATCHED_OUT
+    elif args.batched_test:
+        golden = golden_batched_test(PARITY_OVERRIDES)
+        out = args.out or BATCHED_TEST_OUT
     elif args.lc:
         golden = golden_lc(args.frames or 80, PARITY_OVERRIDES)
         out = args.out or DEFAULT_LC_OUT
