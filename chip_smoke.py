@@ -83,10 +83,35 @@ Phases, each announced on its own line:
    and 8 (the run above is the last): wall time, aggregate tracked
    frames/s and torch.cuda.max_memory_allocated beside
    utils/footprint.py's prediction from its V = 1 and 2 probes, which
-   must hold within 25 % at V = 4 and 8; check_fits(8) must pass.
+   must hold within 25 % at V = 4 and 8; check_fits(8) must pass;
+10. synthetic: the port's CLI, ``runtime.cli --synthetic 65 --rows 270
+   --cols 480 --glibc-init`` in a subprocess on the card (the JAX CLI's
+   room and random walk, rendered on the card, tracked by run_sequence):
+   poses_gt.txt within 5e-4 of the JAX package's trajectory, every pose
+   finite, K3's launch counts in that process equal to the schedule's,
+   and the ATE against poses_gt under the JAX package's ATE on its own
+   render of the same frames plus a stated slack
+   (tests/data/port_golden_synthetic.json, tools/make_port_golden.py
+   --synthetic); the card's render of three poses against the port's CPU
+   render of them;
+11. accuracy: phase 4's poses scored against the binary's
+   reference_build/run_gn/outputs/poses_orig.txt with utils/metrics.py
+   (RPE-8f, RPE-40f, ATE, seeds%, tools/port_parity_eval.py's scoring),
+   beside the JAX package's parity-config run of the same frames
+   (tests/data/port_golden_parity_gn.json, tools/make_port_golden.py
+   --parity-gn);
+12. two ranks on the card: two processes on cuda:0 joined by
+   parallel.mesh.initialize_multihost over gloo (NCCL refuses two ranks
+   on one card): sharded_gn_quantities at level 0 of a real 270x480
+   keyframe and frame against the single-process _gn_quantities (H within
+   1e-4 of its largest entry, g_i of sqrt(H_ii E)), and refine_sharded on
+   phase 6's golden Sim(3) graph against refine (within 1e-5);
+13. profile: utils.profiling.trace and StageTimer around one keyframe
+   interval of phase 10's frames: the stage times and the card's busy
+   share from the trace.
 
-Each driven path (phases 4, 6, 7, 8 and 9) sets K3's launch counts to 0 just
-before it and reads them just after.  The last lines are one JSON object
+Each driven path (phases 4, 6, 7, 8, 9 and 10) sets K3's launch counts to
+0 just before it and reads them just after.  The last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
 the larger of its compulsory bytes over 3.35 TB/s and its float32
@@ -120,6 +145,12 @@ RECOVERY_GOLDEN = os.path.join(ROOT, "tests", "data",
                                "port_golden_recovery.json")
 BATCHED_GOLDEN = os.path.join(ROOT, "tests", "data",
                               "port_golden_batched_run_gn.json")
+SYNTHETIC_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                "port_golden_synthetic.json")
+PARITY_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "port_golden_parity_gn.json")
+BINARY_POSES = os.path.join(ROOT, "reference_build", "run_gn", "outputs",
+                            "poses_orig.txt")
 MAIN_FRAMES = 129
 LC_BOOTSTRAP_FRAMES, LC_FRAMES = 80, 144
 # K3 launches of the two LC runs, counted by hand from the frame schedule
@@ -154,6 +185,26 @@ BATCH_LAUNCHES = {"do_regularization": 35, "regularize": 5}
 # the JAX package's tolerance for vmap against serial
 # (tests/test_parallel.py), and the footprint prediction's
 BATCH_POSE_TOL, FOOTPRINT_TOL = 2e-3, 0.25
+# Phase 10: the port's CLI over SYNTHETIC_FRAMES frames of the JAX CLI's
+# synthetic room at 480x270.  K3 launches, by phase 4's schedule: frames
+# 2..65 are 64 tracked frames, the first interval 7 and then 7 of 8, so 8
+# keyframe steps (frames 8, 16, ..., 64) and 56 track_refine steps:
+# 56 + 2 x 8 = 72 and 1 + 8 = 9.
+SYNTHETIC_FRAMES = 65
+SYNTHETIC_LAUNCHES = {"do_regularization": 72, "regularize": 9}
+# The trajectory and render tolerances of tests/test_torch_synthetic.py:
+# float32 lie.compose chains part by 1.9e-4 between XLA and ATen (log_se3's
+# ill-conditioned coefficient near 0.01 rad); a render within 2e-3 grey
+# levels and 1e-6 relative depth, but for at most 0.1 % seam pixels.
+TRAJ_TOL, RENDER_TOL, DEPTH_RTOL, SEAM_FRAC = 5e-4, 2e-3, 1e-6, 1e-3
+# ATE slack over the JAX package's 8.372e-3 on these frames: three times
+# the largest gap of the port's CPU runs from it (7.98e-3 at 1 thread and
+# 7.65e-3 at 4 threads with the glibc init, on a CPU: gap 7.3e-4)
+SYNTHETIC_ATE_SLACK = 2.2e-3
+# Phase 12: H within 1e-4 of its largest entry (the JAX package holds its
+# pixel-sharded H at 2e-4) and each g_i within 1e-4 of sqrt(H_ii E), E
+# the energy; the sharded Sim(3) nodes within 1e-5
+SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -377,13 +428,79 @@ def device_ms(fn, reps):
         ev[1])
 
 
+def load_tool(name):
+    """A module of this checkout's tools/ directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def golden_sim3_graph(lc_golden, cfg, dev):
+    """The keyframe Sim(3) graph that LC mode's final refinement builds
+    from the LC golden file's corrected poses and loop edges
+    (ellc_lc._sim3_refine_trajectory)."""
+    import numpy as np
+    from egomotion_with_local_loop_closures_tpu_torch.graph import sim3
+    ids = np.asarray(lc_golden["frame_ids"])
+    poses = np.asarray(lc_golden["world_poses"], np.float32)
+    kf_idx = np.nonzero(ids % cfg.keyframe_interval == 0)[0]
+    node = {int(f): k for k, f in enumerate(ids[kf_idx])}
+    loops = [(node[e["matched_kf_id"]], node[e["frame_id"]],
+              np.asarray(e["pose_wrt_matched"], np.float32))
+             for e in lc_golden["edges"]
+             if e["matched_kf_id"] in node and e["frame_id"] in node]
+    return sim3.graph_from_trajectory(poses[kf_idx], np.ones(len(kf_idx)),
+                                      loop_edges=loops, device=dev)
+
+
+def rank_child(argv) -> int:
+    """One rank of phase 12: ``chip_smoke.py --rank-child RANK PORT DIR
+    DEVICE``.  Joins the two-rank gloo group, runs the pixel-sharded GN
+    linearization and the edge-sharded Sim(3) refinement on DEVICE (phase
+    12 gives both ranks cuda:0) on the inputs in DIR/inputs.pt, and writes
+    DIR/rank<RANK>.pt."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from egomotion_with_local_loop_closures_tpu_torch.config import (
+        ELLCConfig)
+    from egomotion_with_local_loop_closures_tpu_torch.graph import ba, sim3
+    from egomotion_with_local_loop_closures_tpu_torch.parallel import (
+        mesh, sharded)
+    from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, port, work, dev = int(argv[0]), argv[1], argv[2], torch.device(
+        argv[3])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh.initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    inp = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+           for k, v in torch.load(os.path.join(work, "inputs.pt")).items()}
+    cfg = ELLCConfig(**inp["config"])
+    H, g = sharded.sharded_gn_quantities(
+        alignment.KeyframeLevel(inp["kf_image"], inp["kf_depth"],
+                                inp["kf_var"]),
+        alignment.CurrentLevel(inp["cur_image"], inp["cur_gradx"],
+                               inp["cur_grady"]), inp["pose"], 0, cfg)
+    graph = sim3.Sim3Graph(inp["nodes"], inp["edges"], inp["meas"],
+                           inp["weights"])
+    nodes = ba.refine_sharded(graph, num_iters=cfg.sim3_iters).nodes
+    torch.save({"H": H.cpu(), "g": g.cpu(), "nodes": nodes.cpu()},
+               os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     for need in (os.path.join(ROOT, PKG, "__init__.py"), FRAMES, GOLDEN,
-                 LC_GOLDEN, LC_EDGES, RECOVERY_GOLDEN, BATCHED_GOLDEN):
+                 LC_GOLDEN, LC_EDGES, RECOVERY_GOLDEN, BATCHED_GOLDEN,
+                 SYNTHETIC_GOLDEN, PARITY_GOLDEN, BINARY_POSES):
         if not os.path.exists(need):
             print(f"chip_smoke: {need} is missing: run from a checkout of "
                   f"the repository", file=sys.stderr)
@@ -401,7 +518,12 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, io as ellc_io, pipeline, runner)
-    from egomotion_with_local_loop_closures_tpu_torch.utils import footprint
+    from egomotion_with_local_loop_closures_tpu_torch.graph import ba
+    from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
+    from egomotion_with_local_loop_closures_tpu_torch.runtime import cli
+    from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+    from egomotion_with_local_loop_closures_tpu_torch.utils import (
+        footprint, metrics, profiling, synthetic)
     check(os.path.dirname(os.path.abspath(port.__file__))
           == os.path.join(ROOT, PKG), "the port imported from this checkout")
     check("jax" not in sys.modules, "jax stays unimported")
@@ -927,11 +1049,211 @@ def main() -> int:
     timed_videos = timing(f"on the batch of {BATCH_VIDEOS} videos' states "
                           f"at 270x480", *batch9)
 
+    with open(SYNTHETIC_GOLDEN) as f:
+        syn_golden = json.load(f)["full_width"]
+    syn_cfg = cfg.replace(rows=syn_golden["rows"], cols=syn_golden["cols"],
+                          bootstrap_rng="glibc")
+    phase(f"10 synthetic: the port's CLI --synthetic {SYNTHETIC_FRAMES} at "
+          f"{syn_cfg.rows}x{syn_cfg.cols} in a subprocess on cuda")
+    check(syn_golden["num_input_frames"] == SYNTHETIC_FRAMES,
+          f"the synthetic golden file covers {SYNTHETIC_FRAMES} frames")
+    n_track, n_kf = schedule(SYNTHETIC_FRAMES, cfg.keyframe_interval)
+    check({"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
+          == SYNTHETIC_LAUNCHES, "the synthetic hand count is the schedule's")
+    with tempfile.TemporaryDirectory() as out:
+        # the CLI in its own process; the wrapper resets K3's counts just
+        # before cli.main and prints them just after
+        code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+                f"from {PKG}.ops import reg_kernel; "
+                f"from {PKG}.runtime import cli; "
+                f"reg_kernel.reset_launches(); "
+                f"rc = cli.main(sys.argv[1:]); "
+                f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
+                f"sys.exit(rc)")
+        argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
+                str(syn_cfg.rows), "--cols", str(syn_cfg.cols),
+                "--glibc-init", "--device", "cuda", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, *argv],
+                              capture_output=True, text=True, cwd=ROOT,
+                              timeout=600)
+        wall10 = time.perf_counter() - t0
+        print(proc.stdout.strip())
+        check(proc.returncode == 0, f"the CLI exits 0: {proc.stderr[-3000:]}")
+        launches10 = json.loads(re.search(r"K3 launches (\{.*\})",
+                                          proc.stdout).group(1))
+        gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
+        orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
+    ids10 = orig10[:, 0].astype(int)
+    d_gt = float(np.abs(gt10 - np.asarray(syn_golden["poses_gt"])).max())
+    ate10 = float(metrics.ate_rmse(torch.as_tensor(orig10[:, 2:8]),
+                                   torch.as_tensor(gt10[ids10 - 1])))
+    ate_limit = syn_golden["ate"] + SYNTHETIC_ATE_SLACK
+    print(f"K3 launches {launches10}, expected {SYNTHETIC_LAUNCHES}; "
+          f"{len(ids10)} tracked frames, subprocess wall {wall10:.3f} s "
+          f"(process start, render and run); poses_gt.txt against the JAX "
+          f"trajectory: max |diff| {d_gt:.3g} (tol {TRAJ_TOL}); ATE "
+          f"{ate10:.6g} against the JAX package's {syn_golden['ate']:.6g} "
+          f"(limit {ate_limit:.6g}, slack {SYNTHETIC_ATE_SLACK}); seeds% min "
+          f"{orig10[:, 9].min():.3f} (JAX {min(syn_golden['seeds']):.3f}); "
+          f"on {gpu}")
+    check(launches10 == SYNTHETIC_LAUNCHES, "K3 launch counts match the "
+          "synthetic schedule")
+    check(ids10.tolist() == syn_golden["frame_ids"], "synthetic frame ids")
+    check(bool(np.isfinite(orig10).all()), "synthetic poses finite")
+    check(d_gt <= TRAJ_TOL, "poses_gt.txt matches the JAX trajectory")
+    check(ate10 <= ate_limit, "the synthetic ATE is within the JAX "
+          "package's plus the slack")
+    scene = synthetic.make_room_scene(seed=0, **cli.SYNTHETIC_SCENE)
+    gt_t = synthetic.trajectory(SYNTHETIC_FRAMES, seed=0,
+                                **cli.SYNTHETIC_TRAJECTORY)
+    intr = syn_cfg.level_intrinsics(0)
+    three = gt_t[[0, SYNTHETIC_FRAMES // 2, SYNTHETIC_FRAMES - 1]]
+    img_c, z_c = synthetic.render_sequence(scene, three.to(dev), syn_cfg.rows,
+                                           syn_cfg.cols, *intr)
+    img_h, z_h = synthetic.render_sequence(scene, three, syn_cfg.rows,
+                                           syn_cfg.cols, *intr)
+    d_img = (img_c.cpu() - img_h).abs()
+    d_z = (z_c.cpu() / z_h - 1.0).abs()
+    off = float(((d_img > RENDER_TOL) | (d_z > DEPTH_RTOL)).float().mean())
+    print(f"render of 3 poses on the card against the CPU: max |image "
+          f"diff| {float(d_img.max()):.3g} (tol {RENDER_TOL}), max relative "
+          f"depth diff {float(d_z.max()):.3g} (tol {DEPTH_RTOL}), pixels "
+          f"past them {100 * off:.4f} % (at most {100 * SEAM_FRAC} %)")
+    check(off <= SEAM_FRAC, "the card's render matches the CPU's")
+
+    phase("11 accuracy: phase 4's poses against the binary's poses_orig.txt")
+    parity = load_tool("port_parity_eval")
+    binary = parity.load_reference(BINARY_POSES)
+    ours11 = parity.score(binary, res.frame_ids, res.world_poses, res.seeds,
+                          cfg.keyframe_interval, last_frame=MAIN_FRAMES)
+    jax11 = parity.jax_scores(binary, MAIN_FRAMES, cfg.keyframe_interval)
+    for who, sc in (("port (card)", ours11), ("JAX package (CPU golden)",
+                                              jax11)):
+        print(f"{who}: {sc['frames_compared']} frames to frame "
+              f"{sc['compared_until']}; RPE-8f mean "
+              f"{sc['rpe_8f']['mean_deg']:.4f} median "
+              f"{sc['rpe_8f']['median_deg']:.4f} deg, RPE-40f mean "
+              f"{sc['rpe_40f']['mean_deg']:.4f} deg, ATE {sc['ate']:.5f}, "
+              f"seeds% {sc['seeds_mean']:.3f} (binary "
+              f"{sc['seeds_reference_mean']:.3f})")
+    check(ours11["frames_compared"] == MAIN_FRAMES - 1
+          and jax11["frames_compared"] == MAIN_FRAMES - 1,
+          "both runs track every frame the binary tracks to frame 129")
+    check(all(np.isfinite([s["ate"], s["rpe_8f"]["mean_deg"],
+                           s["rpe_40f"]["mean_deg"]]).all()
+              for s in (ours11, jax11)), "the scores are finite")
+
+    phase("12 two ranks on cuda:0 over gloo: pixel-sharded GN and "
+          "edge-sharded Sim(3)")
+    # a real keyframe (frame 8 of run_gn, phase 3's state) and the next
+    # frame at the pose the pipeline tracks it to
+    _, out12 = pipeline.track_refine_step(st, frames[8], cfg)
+    kf12 = pipeline._kf_levels(st.kf)[0]
+    cur12 = alignment.make_current_levels(pyramid.build_pyramid(
+        torch.as_tensor(frames[8], device=dev), cfg.num_levels))[0]
+    H1, g1, e1, _ = alignment._gn_quantities(kf12, cur12, out12.pose_wrt_kf,
+                                             cfg.level_intrinsics(0), cfg)
+    graph12 = golden_sim3_graph(lc_golden, lc_cfg, dev)
+    nodes1 = ba.refine(graph12, num_iters=lc_cfg.sim3_iters).nodes
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"config": {k: getattr(cfg, k) for k in
+                               ("rows", "cols", "fx", "fy", "cx", "cy")},
+                    "kf_image": kf12.image.cpu(), "kf_depth": kf12.depth.cpu(),
+                    "kf_var": kf12.var.cpu(), "cur_image": cur12.image.cpu(),
+                    "cur_gradx": cur12.gradx.cpu(),
+                    "cur_grady": cur12.grady.cpu(),
+                    "pose": out12.pose_wrt_kf.cpu(),
+                    **{k: getattr(graph12, k).cpu() for k in
+                       ("nodes", "edges", "meas", "weights")}},
+                   os.path.join(work, "inputs.pt"))
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port12 = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--rank-child", str(r), str(port12), work,
+                                   "cuda:0"],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall12 = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exits 0:\n{log[-3000:]}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                 for r in range(2)]
+    # H against its largest entry; g_i against sqrt(H_ii E), the
+    # Cauchy-Schwarz bound of |g_i| = |sum J_i w r| (g is a sum of terms
+    # of both signs, so its largest entry says little of its rounding)
+    g_scale = torch.sqrt(torch.diagonal(H1) * e1).cpu()
+    H_scale = float(H1.abs().max())
+    d_H = max(float((rk["H"] - H1.cpu()).abs().max()) for rk in ranks) \
+        / H_scale
+    d_g = max(float(((rk["g"] - g1.cpu()).abs() / g_scale).max())
+              for rk in ranks)
+    d_nodes = max(float((rk["nodes"] - nodes1.cpu()).abs().max())
+                  for rk in ranks)
+    print(f"two ranks in {wall12:.3f} s (process start included); "
+          f"keyframe {cfg.rows}x{cfg.cols} with "
+          f"{int((kf12.depth > 0).sum())} pixels of depth: max |H diff| "
+          f"{d_H:.3g} of max |H| {H_scale:.4g}, max |g_i diff| {d_g:.3g} "
+          f"of sqrt(H_ii E) (tol {SHARDED_GN_TOL}); Sim(3) graph of "
+          f"{graph12.nodes.shape[0]} nodes and {graph12.edges.shape[0]} "
+          f"edges: max |node diff| {d_nodes:.3g} (tol {SHARDED_BA_TOL})")
+    check(d_H <= SHARDED_GN_TOL and d_g <= SHARDED_GN_TOL,
+          "the two-rank GN system equals the single-process one")
+    check(d_nodes <= SHARDED_BA_TOL, "the two-rank Sim(3) refinement "
+          "equals refine")
+
+    phase("13 profile: one keyframe interval of phase 10's frames under "
+          "utils.profiling.trace and StageTimer")
+    K = syn_cfg.keyframe_interval
+    syn_frames, _ = synthetic.render_sequence(
+        scene, gt_t[:2 * K].to(dev), syn_cfg.rows, syn_cfg.cols, *intr)
+    st13 = pipeline.init_pipeline(syn_frames[0], syn_cfg, dev)
+    st13, _, _ = pipeline.process_interval(st13, list(syn_frames[1:K]),
+                                           syn_cfg)
+    timer = profiling.StageTimer()
+    with tempfile.TemporaryDirectory() as log_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.trace(log_dir):
+            t_in = time.perf_counter()
+            for i in range(K, 2 * K - 1):
+                with timer.stage("track_refine_step") as o:
+                    st13, out13 = pipeline.track_refine_step(
+                        st13, syn_frames[i], syn_cfg)
+                    o.append(out13.pose_wrt_world)
+            with timer.stage("keyframe_step") as o:
+                st13, out13, _ = pipeline.keyframe_step(
+                    st13, syn_frames[2 * K - 1], syn_cfg)
+                o.append(out13.pose_wrt_world)
+            wall13 = time.perf_counter() - t_in
+        trace_file = os.path.join(log_dir, "trace.json")
+        trace_mb = os.path.getsize(trace_file) / 2**20
+        busy_ms, n_dev = profiling.trace_device_time(trace_file)
+    post13 = time.perf_counter() - t0 - wall13
+    print(timer.report())
+    print(f"interval of {K} frames: wall {1e3 * wall13:.1f} ms under the "
+          f"profiler ({1e3 * wall13 / K:.1f} ms a frame); device busy "
+          f"{busy_ms:.2f} ms, a busy share of {100 * busy_ms / (1e3 * wall13):.2f}"
+          f" %; {n_dev} device operations ({n_dev / K:.0f} a frame); trace "
+          f"{trace_mb:.1f} MiB written, profiler post-processing "
+          f"{post13:.1f} s; on {gpu}")
+    check(n_dev > 0 and busy_ms > 0, "the trace holds the card's work")
+
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
     by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
                "lc_mode": launches7, "recovery": launches8,
-               "batched_videos": launches9}
+               "batched_videos": launches9, "synthetic": launches10}
     print(json.dumps({"kernels": [
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
@@ -957,4 +1279,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2:]))
     sys.exit(main())

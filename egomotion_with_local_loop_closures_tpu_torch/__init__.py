@@ -15,8 +15,13 @@ each function's counterpart is found under the same path:
   Sim(3) pose-graph refinement.
 - ``ops``:     hand-written CUDA kernels with their bindings
   (sources under ``csrc/``).
+- ``parallel``: several videos on one card, the process group and
+  device mesh, and the pixel-sharded Gauss-Newton step.
 - ``runtime``: the frame-loop pipeline, the sequence runner, LC mode
-  (``ellc_lc``), checkpoints, pose IO and the CLI.
+  (``ellc_lc``), checkpoints, pose IO, the frame sources (video, image
+  directory, the native C++ loader under ``native/``) and the CLI.
+- ``utils``:   accuracy metrics, timing and tracing, synthetic scenes,
+  debug images, the memory footprint and the glibc draws.
 - ``convert``: moves pipeline states between the JAX package and the port.
 
 The port imports ``torch`` and ``numpy``, never ``jax``.

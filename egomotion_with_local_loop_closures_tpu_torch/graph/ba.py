@@ -22,9 +22,13 @@ each damped Gauss-Newton iteration costs O(E + N):
    matvec and the preconditioner.
 
 Every loop has a fixed trip count and nothing in an iteration reads a
-value back to the host.  The JAX package's ``refine_sharded`` (edges
-sharded over a mesh, reductions by ``psum``) exists for several chips
-and is not ported.
+value back to the host.
+
+``refine_sharded`` splits the edges over the ranks of a process group:
+each rank linearizes its own edges, and every (N, 7) and (N, 7, 7)
+reduction (the gradient, the preconditioner's blocks and each CG matvec)
+and the residual sums are ``all_reduce``d where the JAX package
+``psum``s; the node state is replicated.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from egomotion_with_local_loop_closures_tpu_torch.graph import sim3
 from egomotion_with_local_loop_closures_tpu_torch.graph.sim3 import Sim3Graph
@@ -163,3 +168,63 @@ def refine(graph: Sim3Graph, num_iters: int = 10, cg_iters: int = 25,
         nodes = _retract(nodes, dx)
     return BAResult(nodes=nodes, rms_history=torch.stack(hist))
 
+
+def pad_edges(graph: Sim3Graph, multiple: int) -> Sim3Graph:
+    """Pad the edge list to a multiple of ``multiple`` with zero-weight
+    identity self-edges on node 0 (their residual is log(X0 X0^-1 I) = 0
+    and their weight removes any numeric residue)."""
+    E = graph.edges.shape[0]
+    pad = -E % multiple
+    if pad == 0:
+        return graph
+
+    def grow(t, *shape):
+        return torch.cat([t, t.new_zeros((pad,) + shape)])
+
+    return Sim3Graph(nodes=graph.nodes, edges=grow(graph.edges, 2),
+                     meas=grow(graph.meas, 7), weights=grow(graph.weights))
+
+
+def _psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (a new tensor)."""
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def refine_sharded(graph: Sim3Graph, group=None, num_iters: int = 10,
+                   cg_iters: int = 25, huber_delta: float = 0.05,
+                   damping: float = 1e-6) -> BAResult:
+    """Edge-sharded ``refine`` over the ranks of ``group`` (None: the
+    default group).  Every rank passes the whole graph; the edges are
+    padded to a multiple of the group's size (``pad_edges``) and rank r
+    takes the r-th block of them.  Every rank returns the same nodes,
+    equal to ``refine``'s up to the order of the float sums.  As in the
+    JAX package, the RMS counts the padding edges' (zero) residuals."""
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    graph = pad_edges(graph, n)
+    per = graph.edges.shape[0] // n
+    mine = slice(rank * per, (rank + 1) * per)
+    edges, meas, weights = (graph.edges[mine], graph.meas[mine],
+                            graph.weights[mine])
+    N = graph.nodes.shape[0]
+    ei, ej = edges[:, 0], edges[:, 1]
+    nodes = graph.nodes
+    hist = []
+    for _ in range(num_iters):
+        r, Ji, Jj, w = _linearize(nodes, edges, meas, weights, huber_delta)
+        g, D = _assemble_grad_diag(r, Ji, Jj, w, ei, ej, N)
+        g, D = _psum(g, group), _psum(D, group)
+
+        def mv(v):
+            local = _matvec(v, Ji, Jj, w, ei, ej, N, 0.0)
+            return _gauge(_psum(local, group) + damping * v)
+
+        dx = _pcg(mv, _gauge(g), _block_inv(D, damping), cg_iters)
+        sums = _psum(torch.stack([torch.sum(w[:, None] * r * r),
+                                  torch.tensor(float(r.numel()),
+                                               device=r.device)]), group)
+        hist.append(torch.sqrt(sums[0] / sums[1]))
+        nodes = _retract(nodes, dx)
+    return BAResult(nodes=nodes, rms_history=torch.stack(hist))

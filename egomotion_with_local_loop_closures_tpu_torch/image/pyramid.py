@@ -6,6 +6,8 @@ Port of ``egomotion_with_local_loop_closures_tpu/image/pyramid.py``
 blur with edge replication, floor-halved level shapes, and one-sided
 border gradients without the 0.5 factor.  Images are float32 in [0, 255],
 (H, W) or a stack (..., H, W) (one image per video of a batched pipeline).
+``rgb_to_gray`` and ``resize_quarter`` prepare a decoded frame as the
+reference does (Frame.cpp:60-83).
 """
 
 from __future__ import annotations
@@ -75,3 +77,20 @@ def max_abs_gradient(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     out = mag.clone()
     out[..., 1:-1, 1:-1] = horiz[..., 1:-1, :]
     return out
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB (..., 3) in [0, 255] -> gray float32 with OpenCV's CV_BGR2GRAY
+    weights (Frame.cpp:83), channels in RGB order."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
+                     device=rgb.device)
+    return torch.tensordot(rgb.to(torch.float32), w, dims=([-1], [0]))
+
+
+def resize_quarter(img: torch.Tensor) -> torch.Tensor:
+    """4x area downsample of (H, W): the mean of each 4x4 block, rows and
+    columns past a multiple of 4 dropped (the reference's 1920x1080 ->
+    480x270 resize at scale 0.25)."""
+    H, W = img.shape
+    H4, W4 = (H // 4) * 4, (W // 4) * 4
+    return img[:H4, :W4].reshape(H4 // 4, 4, W4 // 4, 4).mean(dim=(1, 3))

@@ -1,9 +1,11 @@
-"""The multi-video batched pipeline: V video streams advanced together on
-one card.
+"""The multi-video batched pipeline (V video streams advanced together on
+one card) and the pixel-sharded Gauss-Newton step (one template's rows
+split over the ranks of a process group).
 
-Port of ``batched_init`` and ``batched_process_interval`` from
-``egomotion_with_local_loop_closures_tpu/parallel/sharded.py``, the JAX
-package's throughput axis.  There they are ``jax.vmap`` of
+Port of ``egomotion_with_local_loop_closures_tpu/parallel/sharded.py``.
+
+``batched_init`` and ``batched_process_interval`` are the JAX package's
+throughput axis.  There they are ``jax.vmap`` of
 ``pipeline.init_pipeline`` and ``pipeline.process_interval`` with the
 video axis sharded over a device mesh.  Here every tensor of the state
 carries an explicit leading video axis V, and the pipeline's own modules
@@ -18,11 +20,15 @@ card's batched reductions.
 The JAX package's ``keys`` become one CPU ``torch.Generator`` per video
 (ignored under ``bootstrap_rng == "glibc"``, as in the single-video path)
 and its ``mesh`` becomes one explicit device, the card unless the caller
-asks for the CPU.  The pixel-sharded Gauss-Newton step
-(``sharded_gn_quantities``/``sharded_gn_step``) exists only across several
-chips and is not ported.
+asks for the CPU.  Whether V videos fit on the card is checked by
+``utils/footprint.py``.
 
-Whether V videos fit on the card is checked by ``utils/footprint.py``.
+``sharded_gn_quantities`` and ``sharded_gn_step`` replace the reference's
+3 threads striping the rows of the template with per-thread 6x6 partials
+summed at the join (``src/PixelWisePyramid.cpp:416-455``): each rank of
+the ``pixel`` group linearizes its block of the template's rows against
+the whole current image, and H and g are summed by one ``all_reduce``.
+The JAX package does this with ``shard_map`` and ``psum``.
 """
 
 from __future__ import annotations
@@ -32,9 +38,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
+from egomotion_with_local_loop_closures_tpu_torch.geom import lie, linear
 from egomotion_with_local_loop_closures_tpu_torch.runtime import pipeline
+from egomotion_with_local_loop_closures_tpu_torch.track import alignment
 
 
 def _map(fn, *trees):
@@ -108,3 +118,59 @@ def batched_process_interval(states: pipeline.PipelineState, images,
     frames = images.transpose(0, 1).contiguous().unbind(0)
     states, outs, _ = pipeline.process_interval(states, frames, cfg)
     return states, outs
+
+
+def _pixel_group(mesh=None):
+    """The process group of the ``pixel`` axis: a ``DeviceMesh``'s, a
+    group given as is, or the default group for None."""
+    if mesh is None or isinstance(mesh, dist.ProcessGroup):
+        return mesh
+    return mesh.get_group("pixel")
+
+
+def sharded_gn_quantities(kf: alignment.KeyframeLevel,
+                          cur: alignment.CurrentLevel,
+                          pose: torch.Tensor, level: int,
+                          cfg: ELLCConfig, mesh=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GN linearization with the template's rows split over the ranks
+    of the ``pixel`` group (``mesh``: a ``DeviceMesh`` with a ``pixel``
+    axis, a process group, or None for the default group).  Every rank
+    passes the whole keyframe level and current level; the rows are
+    padded to a multiple of the group's size with depth 0 (so no padded
+    pixel counts), rank r linearizes rows r*rows_pad/n onwards, and H
+    (6, 6) and g (6,) are summed over the group: every rank returns the
+    same sums."""
+    group = _pixel_group(mesh)
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    rows = kf.image.shape[-2]
+    per = -(-rows // n)
+    pad = per * n - rows
+
+    def block(a):
+        return F.pad(a, (0, 0, 0, pad))[..., rank * per:(rank + 1) * per, :]
+
+    kf_local = alignment.KeyframeLevel(block(kf.image), block(kf.depth),
+                                       block(kf.var))
+    H, g, _, _ = alignment._gn_quantities(
+        kf_local, cur, pose, cfg.level_intrinsics(level), cfg,
+        y_offset=rank * per)
+    # one collective for both: H's 36 entries and g's 6
+    Hg = torch.cat([H, g[..., None]], dim=-1).contiguous()
+    dist.all_reduce(Hg, op=dist.ReduceOp.SUM, group=group)
+    return Hg[..., :6], Hg[..., 6]
+
+
+def sharded_gn_step(kf: alignment.KeyframeLevel,
+                    cur: alignment.CurrentLevel,
+                    pose: torch.Tensor, level: int,
+                    cfg: ELLCConfig, mesh=None) -> torch.Tensor:
+    """One pixel-sharded GN pose update: the summed system solved, the
+    update zeroed where it is not finite or exceeds 1e3 in a component,
+    and left-composed onto ``pose``."""
+    H, g = sharded_gn_quantities(kf, cur, pose, level, cfg, mesh)
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    delta = -linear.solve_spd(H + 1e-12 * eye, g)
+    ok = torch.isfinite(delta).all() & (torch.abs(delta).max() < 1e3)
+    return lie.compose(torch.where(ok, delta, 0.0), pose)

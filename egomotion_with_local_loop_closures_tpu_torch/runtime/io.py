@@ -1,7 +1,8 @@
-"""Pose-file IO in the reference's text formats, plus an image-directory
-frame source.
+"""Pose-file IO in the reference's text formats, plus the video and
+image-directory frame sources.
 
-A copy of ``PoseWriter``, ``read_pose_file`` and ``image_dir_frames`` from
+A copy of ``PoseWriter``, ``read_pose_file``, ``video_frames`` and
+``image_dir_frames`` from
 ``egomotion_with_local_loop_closures_tpu/runtime/io.py`` (numpy only; the
 JAX package's ``runtime/__init__.py`` imports jax, so the port cannot
 import the original).  The output is byte-identical to the original's.
@@ -65,6 +66,42 @@ def read_pose_file(path: str) -> np.ndarray:
             if line:
                 rows.append([float(v) for v in line.split()])
     return np.asarray(rows, dtype=np.float64)
+
+
+def video_frames(path: str, gray: bool = True, resize_factor: float = 0.25,
+                 skip: int = 0, max_frames: Optional[int] = None
+                 ) -> Iterator[np.ndarray]:
+    """Decode a video file with OpenCV (imported on first use) the way the
+    reference prepares a frame: resize by ``resize_factor`` (1920x1080 ->
+    480x270, src/ExternVariable.h:50-51, Frame.cpp:60-66) and BGR -> gray
+    (Frame.cpp:83).  ``skip`` grabs and discards frames first, as
+    main.cpp:156-166 does to reach a batch's start.
+
+    Yields float32 (H, W) arrays in [0, 255]."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cannot open video: {path}")
+    try:
+        for _ in range(skip):
+            if not cap.grab():
+                return
+        n = 0
+        while max_frames is None or n < max_frames:
+            ok, frame = cap.read()
+            if not ok:
+                return
+            if resize_factor != 1.0:
+                frame = cv2.resize(frame, None, fx=resize_factor,
+                                   fy=resize_factor,
+                                   interpolation=cv2.INTER_LINEAR)
+            if gray and frame.ndim == 3:
+                frame = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+            yield np.asarray(frame, dtype=np.float32)
+            n += 1
+    finally:
+        cap.release()
 
 
 def image_dir_frames(path: str, gray: bool = True

@@ -70,16 +70,21 @@ def make_current_levels(images: Sequence[torch.Tensor]
 
 
 def _pixel_terms(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
-                 intr: Tuple[float, float, float, float], cfg: ELLCConfig):
+                 intr: Tuple[float, float, float, float], cfg: ELLCConfig,
+                 y_offset: int = 0):
     """Warp every template pixel into the current frame at ``pose``:
     returns the current gradients sampled there, the residual, the GN
     weight, the used-pixel mask and the template terms (u, v, 1/d).
 
     For V videos at once every level field is (V, H, W) and ``pose`` is
-    (V, 6): each video's pose moves its own template."""
+    (V, 6): each video's pose moves its own template.  ``y_offset`` shifts
+    the template's row coordinates: a block of rows starting at that row
+    of the full template (``parallel/sharded.py``)."""
     fx, fy, cx, cy = intr
     Hh, Ww = kf.image.shape[-2:]
     x, y = camera.pixel_grid(Hh, Ww, device=kf.image.device)
+    if y_offset:
+        y = y + y_offset
     mask = kf.depth > 0.0
 
     T = lie.exp_se3(pose)
@@ -133,13 +138,16 @@ def _steepest_descent(gradx, grady, u, v, inv_d, fx, fy) -> torch.Tensor:
 
 def _gn_quantities(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
                    intr: Tuple[float, float, float, float],
-                   cfg: ELLCConfig):
+                   cfg: ELLCConfig, y_offset: int = 0):
     """One linearization: returns (H 6x6, g 6, energy, valid_count), each
-    with the pose's leading axes (one system per video)."""
+    with the pose's leading axes (one system per video).  ``y_offset``:
+    the template holds the rows of the full template from that row on (a
+    rank's block of rows, ``parallel/sharded.py``); the current level is
+    whole."""
     fx, fy = intr[0], intr[1]
     lead = pose.shape[:-1]
     gradx, grady, residual, weight, used, (u, v, inv_d) = _pixel_terms(
-        kf, cur, pose, intr, cfg)
+        kf, cur, pose, intr, cfg, y_offset)
     J = _steepest_descent(gradx, grady, u, v, inv_d, fx, fy).reshape(
         lead + (-1, 6))
     weight = weight.reshape(lead + (-1,))

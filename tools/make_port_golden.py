@@ -72,12 +72,30 @@ from frame 14v on.  The init state's arrays go to
 (``kf.images.0``, ``depth.valid``, ...), and each interval's outputs to
 ``tests/data/port_golden_batched_test.json``.
 
+Parity on run_gn (``--parity-gn``): the reference of
+``tools/port_parity_eval.py`` and ``chip_smoke.py``'s phase 11.  Runs the
+JAX package's ``runner.run_sequence`` on the CPU under the parity config
+over every frame of ``reference_build/run_gn`` (``--frames N``: the first
+N) and writes the tracked frames' world poses, seeds% and rescale factors
+and the run's seconds to ``tests/data/port_golden_parity_gn.json``.
+
+Synthetic scenes (``--synthetic``): the reference of ``chip_smoke.py``'s
+phase 10 and of ``tests/test_torch_synthetic.py``.  Two runs of the JAX
+package on the CPU, both on the scene and trajectory of the JAX CLI's
+``--synthetic`` (seed 0, ``depth=1.25, half_width=1.7, half_height=1.15,
+rot_step=0.0015, trans_step=0.02``): 65 frames at 480x270 rendered by
+``utils.synthetic.render`` and tracked by ``runner.run_sequence`` under
+the parity config, and the JAX CLI itself, ``--synthetic 17`` at its
+96x128 default.  For each it writes the ground-truth poses, the tracked
+world poses and seeds%, and the ATE against the ground truth to
+``tests/data/port_golden_synthetic.json``.
+
 ``chip_smoke.py`` and the port's tests compare the port's runs with these
 files.
 
 Usage: python tools/make_port_golden.py [--lc | --lc-test | --recovery |
-       --recovery-test | --batched | --batched-test] [--frames N]
-       [--out PATH]
+       --recovery-test | --batched | --batched-test | --parity-gn |
+       --synthetic] [--frames N] [--out PATH]
 """
 
 from __future__ import annotations
@@ -118,6 +136,14 @@ BATCHED_TEST_NPZ = os.path.join(ROOT, "tests", "data",
                                 "port_batched_test.npz")
 # first frame of each video in the LC test frames, frames a video
 BATCHED_TEST_OFFSETS, BATCHED_TEST_N = (0, 14, 28), 16
+PARITY_GN_OUT = os.path.join(ROOT, "tests", "data",
+                             "port_golden_parity_gn.json")
+SYNTHETIC_OUT = os.path.join(ROOT, "tests", "data",
+                             "port_golden_synthetic.json")
+# the JAX CLI's --synthetic scene and trajectory (runtime/cli.py:75-80)
+SYNTHETIC_SCENE = dict(depth=1.25, half_width=1.7, half_height=1.15)
+SYNTHETIC_TRAJ = dict(rot_step=0.0015, trans_step=0.02)
+SYNTHETIC_N, SYNTHETIC_TEST_N = 65, 17
 # frame ids (1-based) replaced by a flat gray image, and the frame counts
 RECOVERY_FLAT, RECOVERY_N = (40, 41), 48
 RECOVERY_TEST_FLAT, RECOVERY_TEST_N = (24, 25), 34
@@ -525,6 +551,91 @@ def golden_batched_test(PARITY_OVERRIDES):
             "intervals": intervals}
 
 
+def golden_parity_gn(n, PARITY_OVERRIDES):
+    import time
+
+    from egomotion_with_local_loop_closures_tpu.config import ELLCConfig
+    from egomotion_with_local_loop_closures_tpu.runtime import runner
+
+    cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
+    frames = np.load(FRAMES)["frames"]
+    n = n or len(frames)
+    t0 = time.perf_counter()
+    res = runner.run_sequence(iter(frames[:n]), cfg)
+    seconds = time.perf_counter() - t0
+    golden = _common(cfg, FRAMES, n, "egomotion_with_local_loop_closures_tpu"
+                     " runner.run_sequence on the CPU, "
+                     "tools/make_port_golden.py --parity-gn",
+                     PARITY_OVERRIDES)
+    golden.update(frame_ids=res.frame_ids.tolist(),
+                  kf_ids=res.kf_ids.tolist(),
+                  world_poses=np.asarray(res.world_poses,
+                                         np.float64).tolist(),
+                  seeds=res.seeds.tolist(), rescales=res.rescales.tolist(),
+                  seconds=seconds)
+    print(f"{len(res.frame_ids)} tracked frames in {seconds:.1f} s")
+    return golden
+
+
+def _ate(world_poses, frame_ids, gt):
+    """ATE of the tracked frames (ids 2..) against the ground truth, whose
+    row i is frame i + 1."""
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.utils import metrics
+    ids = np.asarray(frame_ids)
+    return float(metrics.ate_rmse(jnp.asarray(world_poses, jnp.float32),
+                                  jnp.asarray(gt[ids - 1], jnp.float32)))
+
+
+def golden_synthetic(PARITY_OVERRIDES):
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.config import ELLCConfig
+    from egomotion_with_local_loop_closures_tpu.runtime import cli, runner
+    from egomotion_with_local_loop_closures_tpu.utils import synthetic
+
+    cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
+    scene = synthetic.make_room_scene(seed=0, **SYNTHETIC_SCENE)
+    gt = np.asarray(synthetic.trajectory(SYNTHETIC_N, seed=0,
+                                         **SYNTHETIC_TRAJ))
+    fx, fy, cx, cy = cfg.level_intrinsics(0)
+    render = jax.jit(lambda p: synthetic.render(
+        scene, p, cfg.rows, cfg.cols, fx, fy, cx, cy)[0])
+    frames = [np.asarray(render(jnp.asarray(p))) for p in gt]
+    res = runner.run_sequence(iter(frames), cfg)
+    full = {"rows": cfg.rows, "cols": cfg.cols,
+            "num_input_frames": SYNTHETIC_N,
+            "config_overrides": PARITY_OVERRIDES,
+            "poses_gt": gt.astype(np.float64).tolist(),
+            "frame_ids": res.frame_ids.tolist(),
+            "world_poses": np.asarray(res.world_poses, np.float64).tolist(),
+            "seeds": res.seeds.tolist(),
+            "ate": _ate(res.world_poses, res.frame_ids, gt)}
+    print(f"{cfg.rows}x{cfg.cols}, {SYNTHETIC_N} frames: ATE {full['ate']:.5g}"
+          f", seeds% min {res.seeds.min():.3f}")
+    with tempfile.TemporaryDirectory() as out:
+        cli.main(["--synthetic", str(SYNTHETIC_TEST_N), "--out", out,
+                  "--platform", "cpu"])
+        gt_t = np.loadtxt(os.path.join(out, "poses_gt.txt"))
+        orig = np.loadtxt(os.path.join(out, "poses_orig.txt"))
+    test = {"argv": ["--synthetic", str(SYNTHETIC_TEST_N)],
+            "poses_gt": gt_t.tolist(),
+            "frame_ids": orig[:, 0].astype(int).tolist(),
+            "world_poses": orig[:, 2:8].tolist(),
+            "seeds": orig[:, 9].tolist(),
+            "ate": _ate(orig[:, 2:8], orig[:, 0].astype(int), gt_t)}
+    print(f"JAX CLI --synthetic {SYNTHETIC_TEST_N}: ATE {test['ate']:.5g}")
+    return {"source": "egomotion_with_local_loop_closures_tpu on the CPU: "
+                      "utils.synthetic and runner.run_sequence at 480x270, "
+                      "runtime.cli --synthetic at 96x128, "
+                      "tools/make_port_golden.py --synthetic",
+            "scene": dict(seed=0, **SYNTHETIC_SCENE),
+            "trajectory": dict(seed=0, **SYNTHETIC_TRAJ),
+            "full_width": full, "cli_test": test}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -541,6 +652,11 @@ def main(argv=None) -> int:
     mode.add_argument("--batched-test", action="store_true",
                       help="the 96x128 multi-video test arrays and golden "
                            "file")
+    mode.add_argument("--parity-gn", action="store_true",
+                      help="the JAX package's run over run_gn under the "
+                           "parity config")
+    mode.add_argument("--synthetic", action="store_true",
+                      help="the synthetic-scene golden file")
     ap.add_argument("--frames", type=int, default=None,
                     help="input frames (default 17, or 80 with --lc)")
     ap.add_argument("--out", default=None)
@@ -572,6 +688,12 @@ def main(argv=None) -> int:
     elif args.batched_test:
         golden = golden_batched_test(PARITY_OVERRIDES)
         out = args.out or BATCHED_TEST_OUT
+    elif args.parity_gn:
+        golden = golden_parity_gn(args.frames, PARITY_OVERRIDES)
+        out = args.out or PARITY_GN_OUT
+    elif args.synthetic:
+        golden = golden_synthetic(PARITY_OVERRIDES)
+        out = args.out or SYNTHETIC_OUT
     elif args.lc:
         golden = golden_lc(args.frames or 80, PARITY_OVERRIDES)
         out = args.out or DEFAULT_LC_OUT
