@@ -28,7 +28,9 @@ Phases, each announced on its own line:
    reference_build/run_gn at 480x270 under the parity config; K3's launch
    counts must equal what the frame schedule implies, every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
-   interval;
+   interval.  Then the same frames with intervals_per_dispatch 1 and 4
+   (the default: outputs read every four intervals) in turns 1/4/4/1:
+   the same frame and keyframe ids, frames/s and reads of each turn;
 5. golden: the first 17 frames against the JAX package's output
    (tests/data/port_golden_run_gn.json, written by
    tools/make_port_golden.py): max |pose component difference| <= 1e-3
@@ -83,7 +85,10 @@ Phases, each announced on its own line:
    and 8 (the run above is the last): wall time, aggregate tracked
    frames/s and torch.cuda.max_memory_allocated beside
    utils/footprint.py's prediction from its V = 1 and 2 probes, which
-   must hold within 25 % at V = 4 and 8; check_fits(8) must pass;
+   must hold within 25 % at V = 4 and 8; check_fits(8) must pass.  Each
+   V's run captures its graphs afresh and releases them after, so its
+   peak holds one V's state and that V's graph pool, whose bytes it
+   prints;
 10. synthetic: the port's CLI, ``runtime.cli --synthetic 65 --rows 270
    --cols 480 --glibc-init`` in a subprocess on the card (the JAX CLI's
    room and random walk, rendered on the card, tracked by run_sequence):
@@ -107,11 +112,36 @@ Phases, each announced on its own line:
    1e-4 of its largest entry, g_i of sqrt(H_ii E)), and refine_sharded on
    phase 6's golden Sim(3) graph against refine (within 1e-5);
 13. profile: utils.profiling.trace and StageTimer around one keyframe
-   interval of phase 10's frames: the stage times and the card's busy
-   share from the trace.
+   interval of phase 10's frames, every step a graph replay: the stage
+   times and the card's busy share from the trace;
+14. graphs against eager: from one init state on phase 4's frames, the
+   first interval with every frame step replayed from its captured CUDA
+   graph (runtime/graphs.py) and run eagerly (the step bodies
+   pipeline._track_refine_step and _keyframe_step): every track_refine
+   step bit-equal on every state field and output (NaN equal to NaN), the
+   K3 launches counted from the graph's nodes equal to the eager step's;
+   the keyframe step, whose propagate sums with float atomics
+   (index_add_), tensor by tensor within twice the largest difference of
+   two of eight eager runs plus 4 units in the last place of the tensor's
+   largest magnitude, from the nearest eager run, in each of three
+   rounds (the eager-eager, graph-graph and graph-eager differences of
+   every tensor that differs are printed, absolute and in units of the
+   last place); the same for two batched videos and for replay steps with
+   an initial rotation.  Prints each captured graph's kernel nodes (from
+   raw_cuda_graph() and libcuda's cuGraphGetNodes) beside the eager
+   profile's 24,475 launches a frame, its K3 nodes (found by name) and
+   its warm-up's K3 launches, its capture and instantiate seconds and its
+   pool's bytes, and GN frames/s graphed beside eager over the same 16
+   frames, in turns.
 
-Each driven path (phases 4, 6, 7, 8, 9 and 10) sets K3's launch counts to
-0 just before it and reads them just after.  The last lines are one JSON object
+Phases 4-13 run graphed: on the card every frame step of run_sequence,
+process_interval, run_ellc_lc and batched_process_interval replays its
+captured graph, and a replay counts the K3 kernel nodes of its graph
+(checked at capture against the wrapper calls the capture made); the
+eager warm-up before each capture counts apart, under
+``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
+and 10) sets K3's launch counts to 0 just before it and reads them just
+after.  The last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
 the larger of its compulsory bytes over 3.35 TB/s and its float32
@@ -124,6 +154,7 @@ result.  It never imports jax or the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -205,6 +236,15 @@ SYNTHETIC_ATE_SLACK = 2.2e-3
 # pixel-sharded H at 2e-4) and each g_i within 1e-4 of sqrt(H_ii E), E
 # the energy; the sharded Sim(3) nodes within 1e-5
 SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
+# Phase 14: the keyframe step's float atomics (propagate's index_add_) part
+# two eager runs by 1-4 units in the last place of a tensor's values; the
+# graphed step is held to each tensor's spread over KF_RUNS eager runs (its
+# largest pairwise difference) with room KF_ROOM, plus KF_ULPS units in the
+# last place of the tensor's largest magnitude for a tensor whose rare
+# variation none of the eager runs of a round happened to show (validity:
+# 1 ulp in some rounds, 0 in others), in each of KF_ROUNDS rounds
+KF_RUNS, KF_ROUNDS, KF_ROOM, KF_ULPS = 8, 3, 2.0, 4
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -517,7 +557,7 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
-        ellc_lc, io as ellc_io, pipeline, runner)
+        ellc_lc, graphs, io as ellc_io, pipeline, runner)
     from egomotion_with_local_loop_closures_tpu_torch.graph import ba
     from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
     from egomotion_with_local_loop_closures_tpu_torch.runtime import cli
@@ -730,11 +770,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(reg_kernel.launches)
+        warmups = {"gn_run_sequence": dict(reg_kernel.warmup_launches)}
         poses_file = ellc_io.read_pose_file(os.path.join(out,
                                                          "poses_orig.txt"))
         matches = ellc_io.read_pose_file(os.path.join(out, "matchframes.txt"))
     print(f"schedule: {n_track} track_refine + {n_kf} keyframe steps; K3 "
-          f"launches {launches}, expected {expect}")
+          f"launches {launches}, expected {expect}; the graphs' warm-ups "
+          f"launched {warmups['gn_run_sequence']} more")
     check(launches == expect, "K3 launch counts match the frame schedule")
     check(len(res.frame_ids) == MAIN_FRAMES - 1, "every frame tracked")
     check(len(matches) == n_kf, "one matchframes line per keyframe")
@@ -748,6 +790,28 @@ def main() -> int:
           f"{fps:.3f} frames/s over frames {n_a + 2}..{n_b + 1} (after the "
           f"first interval) on {gpu}; seeds% min {res.seeds.min():.2f} "
           f"last {res.seeds[-1]:.2f}")
+
+    # intervals_per_dispatch: outputs read every 4 intervals (the default
+    # above) against every interval, in turns 1/4/4/1 on the same frames;
+    # the poses are compared, not held equal: propagate's float atomics
+    # part two runs of either by a few units in the last place
+    turns4 = []
+    for ipd in (1, 4, 4, 1):
+        r = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
+                                intervals_per_dispatch=ipd)
+        (n_a, t_a), (n_b, t_b) = r.extra["block_times"][0], \
+            r.extra["block_times"][-1]
+        turns4.append((ipd, (n_b - n_a) / (t_b - t_a),
+                       len(r.extra["block_times"]), r))
+        check(r.frame_ids.tolist() == res.frame_ids.tolist()
+              and r.kf_ids.tolist() == res.kf_ids.tolist(),
+              f"intervals_per_dispatch {ipd}: the same frames and keyframes")
+    d4 = max(float(np.abs(t[3].world_poses - res.world_poses).max())
+             for t in turns4)
+    print("intervals_per_dispatch in turns 1/4/4/1, frames/s after the "
+          "first interval (reads): " + ", ".join(
+              f"{ipd}: {v:.3f} ({n})" for ipd, v, n, _ in turns4)
+          + f"; max |pose diff| from the run above {d4:.3g}; on {gpu}")
 
     phase("5 golden: JAX package output, first 17 frames")
     with open(GOLDEN) as f:
@@ -788,6 +852,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall6 = time.perf_counter() - t0
     launches6 = dict(reg_kernel.launches)
+    warmups["lc_bootstrap"] = dict(reg_kernel.warmup_launches)
     print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
           f"batch(es), {len(res6.frame_ids)} corrected poses in "
           f"{wall6:.3f} s; phases (s) "
@@ -850,6 +915,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall7 = time.perf_counter() - t0
     launches7 = dict(reg_kernel.launches)
+    warmups["lc_mode"] = dict(reg_kernel.warmup_launches)
     n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
                  == 0)
     print(f"K3 launches {launches7}, expected {expect7}; "
@@ -887,6 +953,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall8 = time.perf_counter() - t0
     launches8 = dict(reg_kernel.launches)
+    warmups["recovery"] = dict(reg_kernel.warmup_launches)
     recs = res8.extra["recoveries"]
     pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
     g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
@@ -958,20 +1025,27 @@ def main() -> int:
 
     sweep = {}
     for V in BATCH_SWEEP:
+        graphs.release((V,))
         if V == BATCH_VIDEOS:
             reg_kernel.reset_launches()
         states9, outs9, wall9, peak9 = batched_run(V)
         if V == BATCH_VIDEOS:
             launches9 = dict(reg_kernel.launches)
+            warmups["batched_videos"] = dict(reg_kernel.warmup_launches)
         pred = predicted[V].peak_bytes
+        pools = {r["pool"]: r["pool_bytes"] for r in graphs.stats()
+                 if r["lead"] == (V,)}
         sweep[V] = (wall9, V * (n_per - 1) / wall9, peak9, pred)
-        print(f"V={V}: {V * (n_per - 1)} tracked frames in {wall9:.3f} s, "
+        print(f"V={V}: {V * (n_per - 1)} tracked frames in {wall9:.3f} s "
+              f"(the graphs' captures included), "
               f"{V * (n_per - 1) / wall9:.3f} aggregate frames/s; peak "
               f"{peak9 / 2**20:.1f} MiB, predicted {pred / 2**20:.1f} MiB "
-              f"({100 * (peak9 / pred - 1):+.1f} %); on {gpu}")
+              f"({100 * (peak9 / pred - 1):+.1f} %), graph pool "
+              f"{sum(pools.values()) / 2**20:.1f} MiB; on {gpu}")
         if V in (4, 8):
             check(abs(peak9 / pred - 1) <= FOOTPRINT_TOL,
                   f"the footprint prediction holds within 25 % at V={V}")
+        graphs.release((V,))
         if V != BATCH_VIDEOS:
             del states9, outs9
     print(f"K3 launches {launches9}, expected {BATCH_LAUNCHES} (one "
@@ -1069,6 +1143,8 @@ def main() -> int:
                 f"reg_kernel.reset_launches(); "
                 f"rc = cli.main(sys.argv[1:]); "
                 f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
+                f"print('K3 warm-up launches ' + "
+                f"json.dumps(reg_kernel.warmup_launches)); "
                 f"sys.exit(rc)")
         argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
                 str(syn_cfg.rows), "--cols", str(syn_cfg.cols),
@@ -1082,6 +1158,8 @@ def main() -> int:
         check(proc.returncode == 0, f"the CLI exits 0: {proc.stderr[-3000:]}")
         launches10 = json.loads(re.search(r"K3 launches (\{.*\})",
                                           proc.stdout).group(1))
+        warmups["synthetic"] = json.loads(re.search(
+            r"K3 warm-up launches (\{.*\})", proc.stdout).group(1))
         gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
         orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
     ids10 = orig10[:, 0].astype(int)
@@ -1212,8 +1290,8 @@ def main() -> int:
     check(d_nodes <= SHARDED_BA_TOL, "the two-rank Sim(3) refinement "
           "equals refine")
 
-    phase("13 profile: one keyframe interval of phase 10's frames under "
-          "utils.profiling.trace and StageTimer")
+    phase("13 profile: one keyframe interval of phase 10's frames, every "
+          "step a graph replay, under utils.profiling.trace and StageTimer")
     K = syn_cfg.keyframe_interval
     syn_frames, _ = synthetic.render_sequence(
         scene, gt_t[:2 * K].to(dev), syn_cfg.rows, syn_cfg.cols, *intr)
@@ -1249,6 +1327,187 @@ def main() -> int:
           f"{post13:.1f} s; on {gpu}")
     check(n_dev > 0 and busy_ms > 0, "the trace holds the card's work")
 
+    phase("14 graphs against eager: phase 4's frames, one video, two "
+          "videos and replay steps")
+    K = cfg.keyframe_interval
+
+    def leaf_names(tree, prefix="out"):
+        """Field paths of the tensors of a tree, in tree_flatten's order."""
+        if isinstance(tree, torch.Tensor):
+            return [prefix]
+        if tree is None:
+            return []
+        if isinstance(tree, tuple):
+            names = getattr(tree, "_fields", range(len(tree)))
+            kids = zip(names, tree)
+        else:
+            kids = ((f.name, getattr(tree, f.name))
+                    for f in dataclasses.fields(tree))
+        return [n for f, c in kids for n in leaf_names(c, f"{prefix}.{f}")]
+
+    def leaf_diffs(a, b):
+        """One row per tensor of two trees of one structure: (max |float
+        difference|, the same in units of the last place of the larger
+        magnitude, elements that differ and are not floats or differ in
+        being NaN, one unit in the last place of the tensor's largest
+        finite magnitude), NaN equal to NaN."""
+        la, lb = graphs.tree_flatten(a)[0], graphs.tree_flatten(b)[0]
+        check(len(la) == len(lb), "trees of one structure")
+        rows = []
+        for x, y in zip(la, lb):
+            check(x.shape == y.shape and x.dtype == y.dtype, "leaf shapes")
+            zero = torch.zeros((), device=x.device)
+            if not x.numel():
+                rows.append(torch.stack([zero, zero, zero, zero]))
+            elif x.dtype.is_floating_point:
+                x, y = x.float(), y.float()
+                d = torch.where(x == y, 0.0, (x - y).abs()).nan_to_num(0.0)
+                m = torch.maximum(x.abs(), y.abs()).nan_to_num(0.0)
+                ulp = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
+                top = torch.where(m.isinf(), 0.0, m).max()
+                rows.append(torch.stack([
+                    d.max(), (d / ulp).nan_to_num(0.0).max(),
+                    (x.isnan() != y.isnan()).sum().float(),
+                    torch.nextafter(top, top.new_tensor(float("inf")))
+                    - top]))
+            else:
+                rows.append(torch.stack([zero, zero,
+                                         (x != y).sum().float(), zero]))
+        return torch.stack(rows).cpu()
+
+    def graphed_vs_eager(label, start, imgs, c, replay=False, rots=None):
+        """The interval ``imgs`` from ``start``, graphed and eager: every
+        track_refine step bit-equal, with as many K3 launches from the
+        graph's nodes as the eager step's wrapper calls; then the keyframe
+        step, whose propagate sums with float atomics (index_add_) in a
+        varying order, in KF_ROUNDS rounds of KF_RUNS eager runs and
+        KF_RUNS replays: each tensor of the graphed step, from the
+        nearest eager run, within KF_ROOM times the largest difference of
+        two eager runs of it plus KF_ULPS units in the last place of its
+        largest magnitude, and with at most KF_ROOM times as many
+        non-float (or NaN) elements differing, in every round."""
+        g = e = start
+        for k in range(len(imgs) - 1):
+            rot = None if rots is None else rots[k]
+            reg_kernel.reset_launches()
+            g, og = pipeline.track_refine_step(g, imgs[k], c, replay, rot)
+            n_g = dict(reg_kernel.launches)
+            reg_kernel.reset_launches()
+            e, oe = pipeline._track_refine_step(e, imgs[k], c, replay, rot)
+            n_e = dict(reg_kernel.launches)
+            torch.cuda.synchronize()
+            check(n_g == n_e, f"{label}: K3 launches of a replay {n_g} equal "
+                  f"the eager step's {n_e}")
+            d = leaf_diffs((g, og), (e, oe))
+            check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
+                  f"graphed equals eager bit for bit (max |diff| "
+                  f"{float(d[:, 0].max()):.3g}, {int(d[:, 2].sum())} "
+                  f"elements differ)")
+        rot = None if rots is None else rots[-1]
+        n = KF_RUNS
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        passed, worst = 0, 0.0
+        for r in range(KF_ROUNDS):
+            kg = [pipeline.keyframe_step(g, imgs[-1], c, replay, rot)
+                  for _ in range(n)]
+            ke = [pipeline._keyframe_step(e, imgs[-1], c, replay, rot)
+                  for _ in range(n)]
+            torch.cuda.synchronize()
+            ee = torch.stack([leaf_diffs(ke[i], ke[j])
+                              for i, j in pairs]).amax(0)
+            gg = torch.stack([leaf_diffs(kg[i], kg[j])
+                              for i, j in pairs]).amax(0)
+            ge = torch.stack([leaf_diffs(kg[0], x) for x in ke]).amin(0)
+            bound = KF_ROOM * ee[:, 0] + KF_ULPS * ee[:, 3]
+            ok = (ge[:, 0] <= bound) & (ge[:, 2] <= KF_ROOM * ee[:, 2])
+            passed += bool(ok.all())
+            worst = max(worst, float((ge[:, 0] / bound).nan_to_num(0.0).max()))
+            names = leaf_names(kg[0])
+            for li in (ge[:, 0] > KF_ROOM * ee[:, 0]).nonzero().flatten(
+                    ).tolist():
+                print(f"{label}, round {r + 1}, {names[li]}: graph-nearest "
+                      f"eager {ge[li, 0]:.3g} ({ge[li, 1]:.0f} ulp) against "
+                      f"an eager spread of {ee[li, 0]:.3g}: within "
+                      f"{KF_ULPS} ulp of the largest magnitude "
+                      f"({KF_ULPS * ee[li, 3]:.3g}): {bool(ok[li])}")
+            if r == 0:
+                for li in (ee + gg + ge)[:, :3].sum(1).nonzero().flatten(
+                        ).tolist():
+                    print(f"{label}, {names[li]}: eager-eager "
+                          f"{ee[li, 0]:.3g} ({ee[li, 1]:.0f} ulp, "
+                          f"{ee[li, 2]:.0f} el.), graph-graph "
+                          f"{gg[li, 0]:.3g} ({gg[li, 1]:.0f} ulp, "
+                          f"{gg[li, 2]:.0f}), graph-nearest eager "
+                          f"{ge[li, 0]:.3g} ({ge[li, 1]:.0f} ulp, "
+                          f"{ge[li, 2]:.0f})")
+        print(f"{label}: {len(imgs) - 1} track_refine steps graphed equal "
+              f"eager bit for bit; keyframe step within {KF_ROOM} times "
+              f"each tensor's eager spread plus {KF_ULPS} ulp of its "
+              f"largest magnitude in {passed} of {KF_ROUNDS} rounds of {n} "
+              f"runs (largest ratio to that bound {worst:.3g})")
+        check(passed == KF_ROUNDS, f"{label}: the graphed keyframe step is "
+              f"within the eager runs' spread")
+
+    imgs14 = [torch.as_tensor(f, device=dev) for f in frames[1:K + 1]]
+    graphed_vs_eager("one video", pipeline.init_pipeline(frames[0], cfg, dev),
+                     imgs14[:K - 1], cfg)
+    two = np.stack([frames[:K], frames[BATCH_STRIDE:BATCH_STRIDE + K]])
+    graphed_vs_eager("two videos", sharded.batched_init(two[:, 0], cfg, dev),
+                     [torch.as_tensor(two[:, k], device=dev)
+                      for k in range(1, K)], cfg)
+    # replay steps seeded with phase 4's world poses turned by 2e-3 rad
+    rots14 = res.world_poses[:K - 1].astype(np.float32)
+    rots14[:, 0] += 2e-3
+    graphed_vs_eager("replay with init_rotation",
+                     pipeline.init_pipeline(frames[0], cfg, dev),
+                     imgs14[:K - 1], cfg, replay=True,
+                     rots=torch.as_tensor(rots14, device=dev))
+    pools14 = {}
+    for r in graphs.stats():
+        pools14[r["pool"]] = r["pool_bytes"]
+        print(f"graph {r['step']} (lead {r['lead']}, replay {r['replay']}, "
+              f"rotation {r['init_rotation']}, window "
+              f"{pipeline._needs_window(r['cfg'])}, "
+              f"{r['cfg'].rows}x{r['cfg'].cols}): nodes {r['nodes']} "
+              f"(the eager GN frame: 24,475 launches, "
+              f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
+              f"warm-up launched {r['warmup_k3']}); capture "
+              f"{r['capture_s']:.3f} s, instantiate "
+              f"{r['instantiate_s']:.3f} s; pool "
+              f"{r['pool_bytes'] / 2**20:.1f} MiB")
+    print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
+          f"{sum(pools14.values()) / 2**20:.1f} MiB")
+
+    def gn_fps(track, keyframe, n=16):
+        """Tracked frames/s over frames 9..8+n of run_gn from the state
+        after the first interval, synced at both ends."""
+        st = pipeline.init_pipeline(frames[0], cfg, dev)
+        st, _, _ = pipeline.process_interval(st, imgs14[:K - 1], cfg)
+        imgs = [torch.as_tensor(f, device=dev) for f in frames[K:K + n]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, img in enumerate(imgs):
+            if (K + i) % K == K - 1:
+                st, o, _ = keyframe(st, img, cfg)
+            else:
+                st, o = track(st, img, cfg)
+        float(o.seeds)
+        return n / (time.perf_counter() - t0)
+
+    turns = []
+    for graphed in (True, False, False, True):
+        steps = ((pipeline.track_refine_step, pipeline.keyframe_step)
+                 if graphed else (pipeline._track_refine_step,
+                                  pipeline._keyframe_step))
+        turns.append((graphed, gn_fps(*steps)))
+    print(f"GN frames/s over frames {K + 1}..{3 * K} of run_gn, in turns "
+          f"graphed/eager/eager/graphed: "
+          f"{' '.join(f'{v:.3f}' for _, v in turns)}; graphed "
+          f"{min(v for g, v in turns if g):.3f}-"
+          f"{max(v for g, v in turns if g):.3f}, eager "
+          f"{min(v for g, v in turns if not g):.3f}-"
+          f"{max(v for g, v in turns if not g):.3f}; on {gpu}")
+
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
     by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
@@ -1258,6 +1517,8 @@ def main() -> int:
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
          "launches_by_path": {k: v[name] for k, v in by_path.items()},
+         "warmup_launches_by_path": {k: v[name]
+                                     for k, v in warmups.items()},
          "max_abs_err": worst[name], "ms": timed_one[name][0],
          "plain_ms": timed_one[name][1], "bound_ms": timed_one[name][2],
          "bound_by": timed_one[name][3], "library_ms": None,

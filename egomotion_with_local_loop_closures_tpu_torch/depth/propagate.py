@@ -173,7 +173,7 @@ def _shift(a: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
 def _region_mask(H: int, W: int, y0: int, y1: int, x0: int, x1: int,
                  device) -> torch.Tensor:
     m = torch.zeros((H, W), dtype=torch.bool, device=device)
-    m[y0:y1, x0:x1] = True
+    m[y0:y1, x0:x1].fill_(True)
     return m
 
 

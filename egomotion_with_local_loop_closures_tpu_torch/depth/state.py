@@ -48,7 +48,7 @@ def empty(shape: Tuple[int, int], device=None) -> DepthMapState:
 
 def _interior(H: int, W: int, b: int, device) -> torch.Tensor:
     m = torch.zeros((H, W), dtype=torch.bool, device=device)
-    m[b:H - b, b:W - b] = True
+    m[b:H - b, b:W - b].fill_(True)
     return m
 
 

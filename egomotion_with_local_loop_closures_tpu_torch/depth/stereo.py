@@ -235,7 +235,7 @@ def _step_cond(seg: SegmentSetup, S: int) -> torch.Tensor:
     posy = seg.pfar_y[None] + ks * seg.incy[None]
     cond = (((seg.incx[None] < 0) == (posx > seg.pclose_x[None]))
             & ((seg.incy[None] < 0) == (posy > seg.pclose_y[None])))
-    cond[0] = True
+    cond[0].fill_(True)
     return cond
 
 

@@ -8,6 +8,7 @@ in ``src/Frame.cpp:86-96``.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -15,8 +16,12 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch.image import interp
 
 
+@functools.lru_cache(maxsize=None)
 def intrinsics_matrix(fx: float, fy: float, cx: float, cy: float,
                       device=None, dtype=torch.float32) -> torch.Tensor:
+    """K as a (3, 3) tensor, made once per arguments (callers only read
+    it), so that a step captured in a CUDA graph copies no host data to
+    the card."""
     return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
                         dtype=dtype, device=device)
 

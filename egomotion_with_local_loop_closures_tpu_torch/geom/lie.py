@@ -96,7 +96,7 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     t = _matvec(V, v)
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -124,7 +124,7 @@ def inv_se3_matrix(T: torch.Tensor) -> torch.Tensor:
     tt = -_matvec(Rt, T[..., :3, 3])
     top = torch.cat([Rt, tt[..., :, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -10,7 +10,10 @@ and how it is laid out is written at the top of that file.
 Both wrappers take one state of (H, W) planes or a batch of B states of
 (B, H, W) planes (the connection-recovery trials, one per loop-window
 candidate, with ``kf_maxgrad`` (B, H, W) too).  Each makes one launch per
-call, whatever B is, and counts it in :data:`launches`:
+call, whatever B is, and counts it in :data:`launches` (a call made while
+a CUDA graph captures launches nothing: ``runtime/graphs.py`` counts its
+calls apart with :func:`counting_into` and adds the graph's K3 nodes to
+:data:`launches` at each replay):
 
 - :func:`do_regularization` -- the fill, then the smoothing;
 - :func:`regularize` -- the smoothing alone (the standalone
@@ -27,13 +30,15 @@ source, into ``egomotion_with_local_loop_closures_tpu_torch/build/``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -50,6 +55,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Launches on the CUDA path since the last reset_launches(), per wrapper.
 launches: Dict[str, int] = {"do_regularization": 0, "regularize": 0}
+# Launches of the eager warm-ups before CUDA graph captures, kept apart
+# from launches (runtime/graphs.py), since the last reset_launches().
+warmup_launches: Dict[str, int] = {"do_regularization": 0, "regularize": 0}
+# where the wrappers count their calls: launches, or counting_into's dict
+_counts: Dict[str, int] = launches
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,6 +67,39 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        warmup_launches[k] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches that no wrapper call makes: the K3 nodes of a CUDA
+    graph, added at each of its replays (``runtime/graphs.py``)."""
+    for k, n in counts.items():
+        launches[k] += n
+
+
+@contextlib.contextmanager
+def counting_into(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Count the wrappers' calls in ``counts`` instead of
+    :data:`launches` while the block runs: a CUDA graph's warm-up, whose
+    launches are reported apart, and its capture, whose calls launch
+    nothing (``runtime/graphs.py``)."""
+    global _counts
+    prev, _counts = _counts, counts
+    try:
+        yield counts
+    finally:
+        _counts = prev
+
+
+def wrapper_of(kernel_name: str) -> Optional[str]:
+    """The wrapper that launches the CUDA function of this (mangled)
+    name: ``reg_kernel<kFill, kOccl>`` with the fill is
+    :func:`do_regularization`'s, without it :func:`regularize`'s; None
+    for any other function."""
+    m = re.search(r"reg_kernelILb([01])E", kernel_name)
+    if m is None:
+        return None
+    return "do_regularization" if m.group(1) == "1" else "regularize"
 
 
 def _find_nvcc() -> str:
@@ -194,7 +237,7 @@ def do_regularization(state: DepthMapState, kf_maxgrad: torch.Tensor,
         return propagate.do_regularization(state, kf_maxgrad, cfg,
                                            remove_occlusions)
     out = _cuda(state, kf_maxgrad, cfg, remove_occlusions)
-    launches["do_regularization"] += 1
+    _counts["do_regularization"] += 1
     return out
 
 
@@ -205,5 +248,5 @@ def regularize(state: DepthMapState, cfg: ELLCConfig,
     if state.idepth.device.type == "cpu":
         return propagate.regularize(state, cfg, remove_occlusions)
     out = _cuda(state, None, cfg, remove_occlusions)
-    launches["regularize"] += 1
+    _counts["regularize"] += 1
     return out

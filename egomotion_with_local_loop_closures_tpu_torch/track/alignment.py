@@ -29,6 +29,7 @@ kernels to write by hand once the port has a benchmark cell.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -186,6 +187,15 @@ def _template_jacobian(kf: KeyframeLevel, level: int, cfg: ELLCConfig
     return torch.where(mask[..., None], J, 0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _termination_weights(weights: Tuple[float, ...], dtype: torch.dtype,
+                         device: torch.device) -> torch.Tensor:
+    """``cfg.termination_weights`` as a tensor, made once per dtype and
+    device (callers only read it), so that a step captured in a CUDA graph
+    copies no host data to the card."""
+    return torch.tensor(weights, dtype=dtype, device=device)
+
+
 def gn_level_const_weight(kf: KeyframeLevel, weights: torch.Tensor,
                           cur: CurrentLevel, pose0: torch.Tensor,
                           level: int, cfg: ELLCConfig, num_iters: int):
@@ -201,7 +211,7 @@ def gn_level_const_weight(kf: KeyframeLevel, weights: torch.Tensor,
     fx, fy, cx, cy = cfg.level_intrinsics(level)
     B = pose0.shape[0]
     dev, dt = pose0.device, pose0.dtype
-    term_w = torch.tensor(cfg.termination_weights, dtype=dt, device=dev)
+    term_w = _termination_weights(cfg.termination_weights, dt, dev)
     J = _template_jacobian(kf, level, cfg).reshape(B, -1, 6)
     w = weights.reshape(B, -1)
     Hmat = (J * w[..., None]).transpose(1, 2) @ J
@@ -274,8 +284,7 @@ def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,
     intr = cfg.level_intrinsics(level)
     dev = pose0.device
     lead = pose0.shape[:-1]
-    term_w = torch.tensor(cfg.termination_weights, dtype=pose0.dtype,
-                          device=dev)
+    term_w = _termination_weights(cfg.termination_weights, pose0.dtype, dev)
     eye = 1e-12 * torch.eye(6, dtype=pose0.dtype, device=dev)
     pose = pose0
     done = torch.zeros(lead, dtype=torch.bool, device=dev)

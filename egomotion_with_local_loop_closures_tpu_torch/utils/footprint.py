@@ -11,7 +11,13 @@ of ``keyframe_interval`` seeded frames at V = 1 and at V = 2 (after a
 short unmeasured run that makes the allocations a process keeps, such as
 the cuBLAS workspaces), each after ``torch.cuda.reset_peak_memory_stats``,
 reads ``torch.cuda.max_memory_allocated`` above what was allocated before
-the probe, and extrapolates linearly in V.  The pipeline's tensors have
+the probe, and extrapolates linearly in V.  Each probe captures its
+V's CUDA graphs of the frame steps afresh (``runtime/graphs.py``), so
+the peak holds their static inputs and memory pool, and releases them
+after.  A run holds one such pool for its video axis, whatever graphs it
+captures into it, and keeps it after the run; what the live pools hold
+unused is not counted as free (:func:`device_bytes_limit`).  The
+pipeline's tensors have
 shapes fixed by the configuration, so its memory does not depend on the
 frames.  The two probes are made once per configuration and device.  On
 the CPU it falls back as the JAX package does on a backend without memory
@@ -28,7 +34,8 @@ import torch
 
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
-from egomotion_with_local_loop_closures_tpu_torch.runtime import checkpoint
+from egomotion_with_local_loop_closures_tpu_torch.runtime import (
+    checkpoint, graphs)
 
 # float32 values of one FrameOutput: two poses and five scalars
 _OUTPUT_FLOATS = 6 + 6 + 5
@@ -57,13 +64,15 @@ def tree_bytes(tree) -> int:
 def device_bytes_limit(device=None) -> Optional[int]:
     """Bytes this process can still allocate on a CUDA device: the
     device's free memory (``torch.cuda.mem_get_info``) plus what PyTorch's
-    caching allocator holds unused.  None on the CPU."""
+    caching allocator holds unused, less what the live CUDA graphs' pools
+    hold unused, which only their captures can take.  None on the CPU."""
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
     return (free + torch.cuda.memory_reserved(device)
-            - torch.cuda.memory_allocated(device))
+            - torch.cuda.memory_allocated(device)
+            - graphs.idle_pool_bytes(device))
 
 
 @dataclasses.dataclass
@@ -109,6 +118,8 @@ def _probe(videos: int, frames: int, cfg: ELLCConfig,
     images = rng.integers(0, 256, size=(videos, frames + 1) + cfg.shape
                           ).astype(np.float32)
     gens = [torch.Generator().manual_seed(v) for v in range(videos)]
+    # a run that captures its graphs: their static inputs and pool count
+    graphs.release((videos,))
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -118,6 +129,7 @@ def _probe(videos: int, frames: int, cfg: ELLCConfig,
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - base
     del states, outs
+    graphs.release((videos,))
     return peak
 
 

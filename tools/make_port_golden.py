@@ -90,12 +90,25 @@ the parity config, and the JAX CLI itself, ``--synthetic 17`` at its
 world poses and seeds%, and the ATE against the ground truth to
 ``tests/data/port_golden_synthetic.json``.
 
+Intervals in one dispatch (``--intervals``): the reference of
+``tests/test_torch_graphs.py``.  Runs the JAX package's
+``pipeline.process_intervals`` on the CPU at ``TEST_CONFIG`` with
+keyframes every 4 frames under the parity config: ``init_pipeline`` on
+frame 0 of ``tests/data/port_lc_test_frames.npz``, then two intervals
+(frames 1..8) in one call, three ways: plain GN, with the loop window on
+(``do_loop_closure``; the two keyframe snapshots too), and replayed
+(``replay=True``) with rotations seeded from the plain run's world poses
+turned by 2e-3 rad about x.  It writes every frame's outputs to
+``tests/data/port_golden_intervals_test.json`` (about 3 minutes on a CPU,
+nearly all of it compiling the three JAX programs, which is why the test
+reads the file).
+
 ``chip_smoke.py`` and the port's tests compare the port's runs with these
 files.
 
 Usage: python tools/make_port_golden.py [--lc | --lc-test | --recovery |
        --recovery-test | --batched | --batched-test | --parity-gn |
-       --synthetic] [--frames N] [--out PATH]
+       --synthetic | --intervals] [--frames N] [--out PATH]
 """
 
 from __future__ import annotations
@@ -136,6 +149,10 @@ BATCHED_TEST_NPZ = os.path.join(ROOT, "tests", "data",
                                 "port_batched_test.npz")
 # first frame of each video in the LC test frames, frames a video
 BATCHED_TEST_OFFSETS, BATCHED_TEST_N = (0, 14, 28), 16
+INTERVALS_TEST_OUT = os.path.join(ROOT, "tests", "data",
+                                  "port_golden_intervals_test.json")
+# keyframe interval and interval count of the --intervals runs
+INTERVALS_TEST_K, INTERVALS_TEST_N = 4, 2
 PARITY_GN_OUT = os.path.join(ROOT, "tests", "data",
                              "port_golden_parity_gn.json")
 SYNTHETIC_OUT = os.path.join(ROOT, "tests", "data",
@@ -551,6 +568,49 @@ def golden_batched_test(PARITY_OVERRIDES):
             "intervals": intervals}
 
 
+def golden_intervals_test(PARITY_OVERRIDES):
+    import jax
+    import jax.numpy as jnp
+    from egomotion_with_local_loop_closures_tpu.config import TEST_CONFIG
+    from egomotion_with_local_loop_closures_tpu.runtime import pipeline
+
+    cfg = TEST_CONFIG.replace(keyframe_interval=INTERVALS_TEST_K,
+                              **PARITY_OVERRIDES)
+    K, N = INTERVALS_TEST_K, INTERVALS_TEST_N
+    frames = np.load(LC_TEST_FRAMES)["frames"].astype(np.float32)
+    images = jnp.asarray(frames[1:1 + N * K]).reshape(N, K, *cfg.shape)
+
+    def run(label, c, **kw):
+        state = pipeline.init_pipeline(jnp.asarray(frames[0]),
+                                       jax.random.PRNGKey(0), c)
+        _, outs, snaps = pipeline.process_intervals(state, images, c, **kw)
+        out = {k: np.asarray(getattr(outs, k), np.float64).tolist()
+               for k in ("pose_wrt_world", "pose_wrt_kf", "seeds",
+                         "rescale")}
+        if snaps is not None:
+            out["snapshots"] = {
+                k: np.asarray(getattr(snaps, k), np.float64).tolist()
+                for k in ("world_pose", "rescale", "seeds")}
+        print(f"{label}: seeds% {np.round(out['seeds'], 3).tolist()}")
+        return out
+
+    gn = run("gn", cfg)
+    window = run("window", cfg.replace(do_loop_closure=True))
+    rots = np.asarray(gn["pose_wrt_world"], np.float32)
+    rots[..., 0] += 2e-3
+    replay = run("replay", cfg, replay=True,
+                 init_rotations=jnp.asarray(rots))
+    replay["init_rotations"] = rots.astype(np.float64).tolist()
+    return {"source": "egomotion_with_local_loop_closures_tpu pipeline."
+                      "process_intervals on the CPU at TEST_CONFIG, "
+                      "tools/make_port_golden.py --intervals",
+            "frames_file": os.path.relpath(LC_TEST_FRAMES, ROOT),
+            "frames_sha256": sha256(frames),
+            "config_overrides": dict(PARITY_OVERRIDES,
+                                     keyframe_interval=K),
+            "intervals": N, "gn": gn, "window": window, "replay": replay}
+
+
 def golden_parity_gn(n, PARITY_OVERRIDES):
     import time
 
@@ -657,6 +717,8 @@ def main(argv=None) -> int:
                            "parity config")
     mode.add_argument("--synthetic", action="store_true",
                       help="the synthetic-scene golden file")
+    mode.add_argument("--intervals", action="store_true",
+                      help="the 96x128 process_intervals golden file")
     ap.add_argument("--frames", type=int, default=None,
                     help="input frames (default 17, or 80 with --lc)")
     ap.add_argument("--out", default=None)
@@ -694,6 +756,9 @@ def main(argv=None) -> int:
     elif args.synthetic:
         golden = golden_synthetic(PARITY_OVERRIDES)
         out = args.out or SYNTHETIC_OUT
+    elif args.intervals:
+        golden = golden_intervals_test(PARITY_OVERRIDES)
+        out = args.out or INTERVALS_TEST_OUT
     elif args.lc:
         golden = golden_lc(args.frames or 80, PARITY_OVERRIDES)
         out = args.out or DEFAULT_LC_OUT

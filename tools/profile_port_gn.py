@@ -4,12 +4,14 @@ Runs ``runner.run_sequence`` over the first frames of
 ``reference_build/run_gn/frames_480x270.npz`` (480x270, parity config)
 twice after a warm-up:
 
-1. with each stage of the frame loop wrapped in ``torch.cuda.synchronize()``
-   and a host clock (align, stereo.observe, K3, keyframe propagation,
-   depth-pyramid refresh): per-stage wall time per tracked frame;
-2. under ``torch.profiler`` without the synchronizing wrappers: the
-   device's busy time (sum of kernel times) against the wall time, and the
-   kernels that took most of it.
+1. with the frame steps run eagerly (``pipeline._track_refine_step`` and
+   ``_keyframe_step``, the bodies the CUDA graphs capture) and each stage
+   wrapped in ``torch.cuda.synchronize()`` and a host clock (align,
+   stereo.observe, K3, keyframe propagation, depth-pyramid refresh):
+   per-stage wall time per tracked frame;
+2. as users run it, every frame step a graph replay, under
+   ``torch.profiler``: the device's busy time (sum of kernel times)
+   against the wall time, and the kernels that took most of it.
 
 Usage (on the card): python tools/profile_port_gn.py [--frames N] [--out F]
 Writes the report as JSON to F (default profile_port_gn.json) and prints it.
@@ -75,8 +77,14 @@ def main(argv=None) -> int:
             return out
         return inner
 
-    for mod, name, fn in originals:
+    # a stage clock syncs the card, which a graph capture refuses: the
+    # steps run their bodies eagerly here
+    originals += [(pipeline, name, getattr(pipeline, name))
+                  for name in ("track_refine_step", "keyframe_step")]
+    for mod, name, fn in originals[:len(wrapped)]:
         setattr(mod, name, timed(name, fn))
+    pipeline.track_refine_step = pipeline._track_refine_step
+    pipeline.keyframe_step = pipeline._keyframe_step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = runner.run_sequence(iter(frames), cfg, dev)
