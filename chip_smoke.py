@@ -7,9 +7,10 @@ Phases, each announced on its own line:
 
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
-2. build: compiles the K3 kernel (csrc/reg_kernel.cu) from this checkout
-   and prints each instantiation's registers, stack and shared memory and
-   its static SASS instruction count (cuobjdump);
+2. build: compiles the K3 kernel (csrc/reg_kernel.cu) and the two K1
+   kernels (csrc/gn_kernel.cu) from this checkout, one nvcc each, started
+   together, and prints each kernel's registers, stack and shared memory
+   and its static SASS instruction count (cuobjdump);
 3. K3 against its plain PyTorch version on the card, bit for bit (NaN
    equal to NaN), on a numpy-seeded state with holes and on a real state
    from the pipeline at 480x270, and on states whose border pixels are
@@ -24,9 +25,24 @@ Phases, each announced on its own line:
    the JSON line reports the card's time per call from CUDA-graph
    replays, in turns with the plain version, the printed line also one
    eager call's latency, host dispatch included);
+3b. K1 against its plain PyTorch version on the card, at every level of
+   the pyramid, for one video and for eight in one call, on numpy-seeded
+   planes and on phase 3's real keyframe and the next frame of run_gn:
+   K1a's sums (H within 1e-4 of its largest entry, g_i within 1e-4 of
+   sqrt(H_ii E), the energy within 1e-4 relative, or else nearer the
+   plain version's float64 sums than the plain float32 ones are; the used
+   count exact) against the plain linearization, each side's distance
+   from float64 printed; K1b on the plain H, g and pose (the
+   pose within 1e-5 a component, iters and freeze flags equal), from a
+   fresh level and from a state with some videos frozen; each video of an
+   eight-video call bit-equal to its own call (K1a's partials and a whole
+   level); then each kernel's time per launch from CUDA-graph replays, in
+   turns with the plain linearization, update and iteration, beside its
+   bound;
 4. main path: runner.run_sequence over the first 129 frames of
-   reference_build/run_gn at 480x270 under the parity config; K3's launch
-   counts must equal what the frame schedule implies, every pose must be
+   reference_build/run_gn at 480x270 under the parity config; K3's and
+   K1's launch counts must equal what the frame schedule implies (K1: two
+   launches a GN iteration, 32 iterations a tracked frame), every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
@@ -108,7 +124,8 @@ Phases, each announced on its own line:
 12. two ranks on the card: two processes on cuda:0 joined by
    parallel.mesh.initialize_multihost over gloo (NCCL refuses two ranks
    on one card): sharded_gn_quantities at level 0 of a real 270x480
-   keyframe and frame against the single-process _gn_quantities (H within
+   keyframe and frame, one K1a launch a rank, against the single-process
+   plain _gn_quantities (H within
    1e-4 of its largest entry, g_i of sqrt(H_ii E)), and refine_sharded on
    phase 6's golden Sim(3) graph against refine (within 1e-5);
 13. profile: utils.profiling.trace and StageTimer around one keyframe
@@ -129,19 +146,20 @@ Phases, each announced on its own line:
    last place); the same for two batched videos and for replay steps with
    an initial rotation.  Prints each captured graph's kernel nodes (from
    raw_cuda_graph() and libcuda's cuGraphGetNodes) beside the eager
-   profile's 24,475 launches a frame, its K3 nodes (found by name) and
-   its warm-up's K3 launches, its capture and instantiate seconds and its
-   pool's bytes, and GN frames/s graphed beside eager over the same 16
-   frames, in turns.
+   profile's 24,475 launches a frame before K1, its K3 and K1 nodes
+   (found by name) and its warm-up's launches, its capture and
+   instantiate seconds and its pool's bytes, and GN frames/s graphed
+   beside eager over the same 16 frames, in turns.
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3 kernel nodes of its graph
-(checked at capture against the wrapper calls the capture made); the
-eager warm-up before each capture counts apart, under
+captured graph, and a replay counts the K3 and K1 kernel nodes of its
+graph (checked at capture against the wrapper calls the capture made);
+the eager warm-up before each capture counts apart, under
 ``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
-and 10) sets K3's launch counts to 0 just before it and reads them just
-after.  The last lines are one JSON object
+and 10) sets K3's and K1's launch counts to 0 just before it and reads
+them just after, and holds them to a hand count of its schedule.  The
+last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
 the larger of its compulsory bytes over 3.35 TB/s and its float32
@@ -245,6 +263,47 @@ SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
 # 1 ulp in some rounds, 0 in others), in each of KF_ROUNDS rounds
 KF_RUNS, KF_ROUNDS, KF_ROOM, KF_ULPS = 8, 3, 2.0, 4
 
+# K1 (ops/gn_kernel.py): one launch of each of its two kernels a GN
+# iteration.  A tracked frame runs sum(max_iters) = 4 + 7 + 9 + 12 = 32
+# iterations, a replayed frame sum(max_iters_replay) = 5 + 1 + 1 + 1 = 8;
+# connection recovery's trials and the LC rematch run the constant-weight
+# aligner, no K1.  Frame steps (track_refine and keyframe, each one align)
+# per path, from the schedules counted for K3 above, and replayed steps:
+# phase 4 every tracked frame, 128; phase 6 69 + 10 = 79; phase 7 the
+# bootstrap batch's 79 and two batches of 28 + 4, 143, each batch replayed
+# once; phase 8 39 + 6 = 45 (frames 41 and 42 are recovery trials, no
+# step); phase 9 27 + 4 = 31, one video's count whatever V; phase 10
+# 56 + 8 = 64.
+K1_ITERS, K1_REPLAY_ITERS = 32, 8
+K1_STEPS = {"gn_run_sequence": (MAIN_FRAMES - 1, 0), "lc_bootstrap": (79, 0),
+            "lc_mode": (143, 143), "recovery": (45, 0),
+            "batched_videos": (31, 0),
+            "synthetic": (SYNTHETIC_FRAMES - 1, 0)}
+# Phase 3b: K1a's H within K1_SUM_TOL of its largest entry, g_i of
+# sqrt(H_ii E), the energy relative (float32 sums of up to 1.3e5 terms in
+# another order than the plain version's); K1b's pose within K1_POSE_TOL a
+# component on the same system; eight videos in one call
+K1_SUM_TOL, K1_POSE_TOL, K1_VIDEOS = 1e-4, 1e-5, 8
+# K1a's float32 operations a template pixel, counted by hand from
+# csrc/gn_kernel.cu (each add, sub, mul, div, sqrt, abs, floor, ceil, min,
+# max and float compare one): backprojection 6, R P + t 18, UNZERO 2,
+# projection 6, bilinear corners 14, three blends 36, u, v, 1/d and the
+# residual 4, the variance and Huber weight 27, the steepest-descent rows
+# 37, the 29 products 41 and the block's tree sum 29
+K1A_OPS_PER_PIXEL = 220
+# K1b's serial operations a video (Cholesky and substitutions 184, two
+# exp_se3 240, the product 63, log_se3 140, the termination metric 12);
+# its partial sums add one a partial
+K1B_OPS_PER_VIDEO = 640
+
+
+def k1_expected(path):
+    """K1's launches on a driven path, by the hand count above."""
+    steps, replayed = K1_STEPS[path]
+    n = K1_ITERS * steps + K1_REPLAY_ITERS * replayed
+    return {"gn_linearize": n, "gn_finish": n}
+
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -347,10 +406,13 @@ def compare(ref, got, fields):
 
 
 def kernel_label(mangled):
-    """reg_kernel<kFill, kOccl> from a mangled kernel name."""
+    """reg_kernel<kFill, kOccl>, gn_linearize or gn_finish from a mangled
+    kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
-    return (f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>" if m
-            else mangled)
+    if m:
+        return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
+    m = re.search(r"\d+(gn_linearize|gn_finish)E", mangled)
+    return m.group(1) if m else mangled
 
 
 def tile_of(src):
@@ -496,6 +558,230 @@ def golden_sim3_graph(lc_golden, cfg, dev):
                                       loop_edges=loops, device=dev)
 
 
+def gn_planes(seed, shape):
+    """A numpy-seeded GN pair: a keyframe (a smooth texture of integer
+    grey levels, a smooth depth with 20 % holes, a variance) and a
+    current image, the texture moved by (2.6, 1.3) pixels with noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    freq = rng.uniform(0.02, 0.25, size=(16, 2))
+    phase_ = rng.uniform(0.0, 2 * np.pi, size=16)
+    amp = rng.uniform(4.0, 12.0, size=16)
+
+    def texture(dx, dy):
+        return 128.0 + sum(amp[k] * np.sin(freq[k, 0] * (x - dx)
+                                           + freq[k, 1] * (y - dy)
+                                           + phase_[k]) for k in range(16))
+    f32 = np.float32
+    img0 = np.clip(np.round(texture(0.0, 0.0)), 0, 255).astype(f32)
+    img1 = np.clip(np.round(texture(2.6, 1.3)
+                            + rng.normal(0.0, 2.0, shape)), 0, 255).astype(f32)
+    hole = rng.uniform(size=shape) < 0.2
+    depth = np.where(hole, 0.0, 1.5 + 0.5 * np.sin(x / 70.0)
+                     * np.cos(y / 50.0)).astype(f32)
+    var = np.where(hole, -1.0, 0.0005 + 0.002 * rng.uniform(size=shape)
+                   ).astype(f32)
+    return img0, depth, var, img1
+
+
+def k1_phase(cases, cfg, dev, gpu):
+    """Phase 3b: K1 against its plain version on ``cases``, each (label,
+    keyframe levels, current levels, pose, timed), at every level, for one
+    video and for K1_VIDEOS (video b: the planes rolled by (b, 2b) pixels,
+    the pose moved by 2e-4 b in each component).  Returns the worst
+    errors, {"gn_linearize": max of the normalized H and g errors,
+    "gn_finish": max |pose diff|}, and for the timed case {(level, V):
+    {kernel or plain function: (ms, plain ms, bound ms, bound by)}}."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+    KL, CL = alignment.KeyframeLevel, alignment.CurrentLevel
+    term_w = alignment._termination_weights(cfg.termination_weights,
+                                            torch.float32, dev)
+    worst = {"gn_linearize": 0.0, "gn_finish": 0.0}
+    timed = {}
+
+    def videos_of(kf, cur, pose, V):
+        if V == 1:
+            return (KL(*(t.contiguous() for t in kf)),
+                    CL(*(t.contiguous() for t in cur)), pose.contiguous())
+
+        def stack(t):
+            return torch.stack([torch.roll(t, (b, 2 * b), (0, 1))
+                                for b in range(V)])
+        return (KL(*map(stack, kf)), CL(*map(stack, cur)),
+                pose + 2e-4 * torch.arange(V, device=dev,
+                                           dtype=torch.float32)[:, None])
+
+    def sum_errors(got, want):
+        (Hg, gg, eg, ng), (Hw, gw, ew, nw) = got, want
+        dH = ((Hg - Hw).abs().amax((-2, -1))
+              / Hw.abs().amax((-2, -1))).max()
+        g_scale = torch.sqrt(torch.diagonal(Hw, dim1=-2, dim2=-1)
+                             * ew[..., None])
+        dg = ((gg - gw).abs() / g_scale).max()
+        de = ((eg - ew).abs() / ew.abs()).max()
+        return float(dH), float(dg), float(de), int((ng != nw).sum())
+
+    def state_clone(st):
+        return gn_kernel.GNState(*(t.clone() for t in st))
+
+    for label, kf_levels, cur_levels, pose0, is_timed in cases:
+        for level in range(cfg.num_levels):
+            intr = cfg.level_intrinsics(level)
+            n_iters = int(cfg.max_iters[level])
+            for V in (1, K1_VIDEOS):
+                kf, cur, pose = videos_of(kf_levels[level], cur_levels[level],
+                                          pose0, V)
+                lead = pose.shape[:-1]
+                got = gn_kernel.gn_quantities(kf, cur, pose, intr, cfg)
+                want = alignment._gn_quantities(kf, cur, pose, intr, cfg)
+                dH, dg, de, dn = sum_errors(got, want)
+                # both against the plain version in float64: how far
+                # float32 itself leaves each from the exact sums.  A sum
+                # past K1_SUM_TOL from the plain one still passes if K1a's
+                # lies nearer the exact sum than the plain version's does
+                # (on the real frames the plain g is the farther one)
+                exact = alignment._gn_quantities(
+                    KL(*(t.double() for t in kf)),
+                    CL(*(t.double() for t in cur)), pose.double(), intr, cfg)
+                err64 = [sum_errors(tuple(t.double() for t in x), exact)
+                         for x in (got, want)]
+                close = [d <= K1_SUM_TOL or k <= p for d, k, p in zip(
+                    (dH, dg, de), err64[0][:3], err64[1][:3])]
+                check(all(close) and dn == 0,
+                      f"K1a on {label} level {level} V={V}: H {dH:.3g}, g "
+                      f"{dg:.3g}, energy {de:.3g} (tol {K1_SUM_TOL}, or "
+                      f"nearer float64 than the plain sums: {close}), "
+                      f"{dn} used counts differ")
+                # K1b on the plain system: a fresh level, then an iteration
+                # from a state with every other video frozen
+                partials = gn_kernel.pack(*want)[..., None, :]
+                ref = gn_kernel._update(*want, pose, None, term_w)
+                got1 = gn_kernel.finish(partials, pose,
+                                        gn_kernel.empty_state(pose), cfg,
+                                        True)
+                frozen = ref._replace(done=(torch.arange(
+                    V, device=dev) % 2).to(torch.int32).reshape(lead))
+                ref2 = gn_kernel._update(*want, frozen.pose, frozen, term_w)
+                st2 = state_clone(frozen)
+                got2 = gn_kernel.finish(partials, st2.pose, st2, cfg, False)
+                dp = max(float((got1.pose - ref.pose).abs().max()),
+                         float((got2.pose - ref2.pose).abs().max()))
+                same = all(torch.equal(getattr(a, f), getattr(b, f))
+                           for a, b in ((got1, ref), (got2, ref2))
+                           for f in ("iters", "done"))
+                check(dp <= K1_POSE_TOL and same,
+                      f"K1b on {label} level {level} V={V}: max |pose diff| "
+                      f"{dp:.3g} (tol {K1_POSE_TOL}), iters and done equal: "
+                      f"{same}")
+                worst["gn_linearize"] = max(worst["gn_linearize"], dH, dg)
+                worst["gn_finish"] = max(worst["gn_finish"], dp)
+                bits = ""
+                if V > 1:
+                    parts = gn_kernel.linearize(kf, cur, pose, intr, cfg)
+                    lvl = alignment.gn_level(kf, cur, pose, level, cfg,
+                                             n_iters)
+                    for b in range(V):
+                        kf1, cur1 = KL(*(t[b] for t in kf)), \
+                            CL(*(t[b] for t in cur))
+                        check(torch.equal(gn_kernel.linearize(
+                            kf1, cur1, pose[b], intr, cfg), parts[b]),
+                            f"K1a video {b} of {V} equals its own call")
+                        lvl1 = alignment.gn_level(kf1, cur1, pose[b], level,
+                                                  cfg, n_iters)
+                        check(all(torch.equal(x, y[b]) for x, y in zip(
+                            (*lvl1[:3], *lvl1[3]), (*lvl[:3], *lvl[3]))),
+                            f"a level of video {b} of {V} equals its own "
+                            f"call bit for bit")
+                    bits = (f"; each of the {V} videos bit-equal to its own "
+                            f"call (partials and a level of {n_iters} "
+                            f"iterations)")
+                print(f"K1 {label} level {level} "
+                      f"({kf.image.shape[-2]}x{kf.image.shape[-1]}) V={V}: "
+                      f"K1a H {dH:.3g}, g {dg:.3g}, energy {de:.3g} of their "
+                      f"scales (from float64: K1a {err64[0][0]:.3g} / "
+                      f"{err64[0][1]:.3g} / {err64[0][2]:.3g}, plain "
+                      f"{err64[1][0]:.3g} / {err64[1][1]:.3g} / "
+                      f"{err64[1][2]:.3g}); K1b max |pose diff| {dp:.3g}"
+                      f"{bits}")
+                if is_timed:
+                    timed[(level, V)] = k1_times(kf, cur, pose, intr, cfg,
+                                                 term_w, gpu, label, level)
+    return worst, timed
+
+
+def k1_times(kf, cur, pose, intr, cfg, term_w, gpu, label, level):
+    """Device time per call of K1a, K1b and their plain versions (the
+    linearization, the update, the whole iteration) from CUDA-graph
+    replays, in turns, beside each kernel's bound."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+    lead = pose.shape[:-1]
+    V = pose[..., 0].numel()
+    h, w = kf.image.shape[-2:]
+    nb = gn_kernel.blocks(h, w)
+    parts = gn_kernel.linearize(kf, cur, pose, intr, cfg)
+    st = gn_kernel.empty_state(pose)
+    sys_ = alignment._gn_quantities(kf, cur, pose, intr, cfg)
+    start = (torch.zeros(lead, dtype=torch.bool, device=pose.device),
+             torch.full(lead, float("inf"), device=pose.device),
+             torch.zeros(lead, dtype=torch.int32, device=pose.device),
+             torch.zeros(lead, device=pose.device),
+             torch.zeros(lead, device=pose.device))
+    fns = {
+        "gn_linearize": lambda: gn_kernel.linearize(kf, cur, pose, intr,
+                                                    cfg),
+        "gn_finish": lambda: gn_kernel.finish(parts, pose, st, cfg, True),
+        "plain_linearize": lambda: alignment._gn_quantities(
+            kf, cur, pose, intr, cfg),
+        "plain_update": lambda: alignment._gn_update(*sys_, pose, *start,
+                                                     term_w),
+        "plain_iteration": lambda: alignment._gn_update(
+            *alignment._gn_quantities(kf, cur, pose, intr, cfg), pose,
+            *start, term_w),
+    }
+    for f in fns.values():
+        f()
+    order = ["plain_iteration", "plain_linearize", "plain_update",
+             "gn_linearize", "gn_finish"]
+    turns = {k: [] for k in fns}
+    for name in order + order[::-1]:
+        reps = 200 if name.startswith("gn_") else 10
+        turns[name].append(device_ms(fns[name], reps)[0])
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    work = {
+        # six planes read, the pose read, the partials written
+        "gn_linearize": (V * (6 * h * w + 6 + nb * gn_kernel.SUMS) * 4,
+                         V * h * w * K1A_OPS_PER_PIXEL),
+        # the partials and the pose read, pose and five scalars written
+        "gn_finish": (V * (nb * gn_kernel.SUMS + 6 + 11) * 4,
+                      V * (K1B_OPS_PER_VIDEO + nb * gn_kernel.SUMS)),
+    }
+    plain_of = {"gn_linearize": "plain_linearize",
+                "gn_finish": "plain_update"}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        out[name] = (ms[name], ms[plain_of[name]], bound, by)
+        print(f"{name} {label} level {level} ({h}x{w}) V={V}: device time "
+              f"per call {ms[name]:.5f} ms (turns "
+              f"{' '.join(f'{t:.5f}' for t in turns[name])}), plain "
+              f"{plain_of[name]} {ms[plain_of[name]]:.5f} ms; bound "
+              f"{bound:.6f} ms by {by} ({nbytes} B, {ops} float32 ops), "
+              f"{100 * bound / ms[name]:.1f} % of it reached; on {gpu}")
+    out["plain_iteration"] = ms["plain_iteration"]
+    print(f"GN iteration {label} level {level} V={V}: K1a + K1b "
+          f"{ms['gn_linearize'] + ms['gn_finish']:.5f} ms against the plain "
+          f"iteration's {ms['plain_iteration']:.5f} ms; on {gpu}")
+    return out
+
+
 def rank_child(argv) -> int:
     """One rank of phase 12: ``chip_smoke.py --rank-child RANK PORT DIR
     DEVICE``.  Joins the two-rank gloo group, runs the pixel-sharded GN
@@ -507,6 +793,7 @@ def rank_child(argv) -> int:
     from egomotion_with_local_loop_closures_tpu_torch.config import (
         ELLCConfig)
     from egomotion_with_local_loop_closures_tpu_torch.graph import ba, sim3
+    from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
     from egomotion_with_local_loop_closures_tpu_torch.parallel import (
         mesh, sharded)
     from egomotion_with_local_loop_closures_tpu_torch.track import alignment
@@ -519,6 +806,7 @@ def rank_child(argv) -> int:
     inp = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
            for k, v in torch.load(os.path.join(work, "inputs.pt")).items()}
     cfg = ELLCConfig(**inp["config"])
+    gn_kernel.reset_launches()
     H, g = sharded.sharded_gn_quantities(
         alignment.KeyframeLevel(inp["kf_image"], inp["kf_depth"],
                                 inp["kf_var"]),
@@ -527,7 +815,8 @@ def rank_child(argv) -> int:
     graph = sim3.Sim3Graph(inp["nodes"], inp["edges"], inp["meas"],
                            inp["weights"])
     nodes = ba.refine_sharded(graph, num_iters=cfg.sim3_iters).nodes
-    torch.save({"H": H.cpu(), "g": g.cpu(), "nodes": nodes.cpu()},
+    torch.save({"H": H.cpu(), "g": g.cpu(), "nodes": nodes.cpu(),
+                "k1": dict(gn_kernel.launches)},
                os.path.join(work, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
     return 0
@@ -554,10 +843,12 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS, DepthMapState)
-    from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        gn_kernel, reg_kernel)
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, graphs, io as ellc_io, pipeline, runner)
+    from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
     from egomotion_with_local_loop_closures_tpu_torch.graph import ba
     from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
     from egomotion_with_local_loop_closures_tpu_torch.runtime import cli
@@ -588,16 +879,24 @@ def main() -> int:
         print(f"triton does not import: {e}")
     print(f"gpu (name, power limit): {gpu}")
 
-    phase("2 build K3")
+    phase("2 build K3 and K1")
     t0 = time.perf_counter()
-    lib = reg_kernel.build()
+    # one nvcc for each source, started together
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        lib, lib_k1 = pool.map(lambda m: m.build(), (reg_kernel, gn_kernel))
     reg_kernel._library()
-    print(f"built {os.path.relpath(lib, ROOT)} in "
+    gn_kernel._library()
+    print(f"built {os.path.relpath(lib, ROOT)} and "
+          f"{os.path.relpath(lib_k1, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits"]).splitlines()[0])
     cuobjdump = os.path.join(os.path.dirname(reg_kernel._find_nvcc()),
                              "cuobjdump")
+    k1_sass = sass_counts(lib_k1, cuobjdump)
+    for fn, res in kernel_resources(lib_k1, cuobjdump).items():
+        print(f"{fn}: {res}; {sum(k1_sass[fn])} SASS instructions")
     resources = kernel_resources(lib, cuobjdump)
     cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
     H, W = cfg.shape
@@ -758,26 +1057,60 @@ def main() -> int:
         f"on a batch of {B} states at 270x480 (the real state rolled)",
         *rolled)
 
+    phase(f"3b K1 against plain PyTorch: every level, V = 1 and "
+          f"{K1_VIDEOS}, seeded and real planes")
+    check(sum(cfg.max_iters) == K1_ITERS
+          and sum(cfg.max_iters_replay) == K1_REPLAY_ITERS,
+          "K1's hand counts use the config's iteration counts")
+    img0, depth0, var0, img1 = (torch.as_tensor(a, device=dev) for a in
+                                gn_planes(5, cfg.shape))
+    depths0, vars0 = fusion.build_depth_var_pyramid(depth0, var0,
+                                                    cfg.num_levels)
+    seeded_kf = tuple(alignment.KeyframeLevel(*lv) for lv in zip(
+        pyramid.build_pyramid(img0, cfg.num_levels), depths0, vars0))
+    seeded_cur = alignment.make_current_levels(pyramid.build_pyramid(
+        img1, cfg.num_levels))
+    seeded_pose = torch.tensor([2e-3, -1e-3, 1.5e-3, 4e-3, 7e-3, -3e-3],
+                               device=dev)
+    # phase 3's keyframe (frame 8) and frame 9 at the pose K1 tracks it to
+    real_kf = pipeline._kf_levels(st.kf)
+    real_cur = alignment.make_current_levels(pyramid.build_pyramid(
+        torch.as_tensor(frames[8], device=dev), cfg.num_levels))
+    real_pose, _ = alignment.align(real_kf, real_cur, st.prev_wrt_kf, cfg)
+    worst_k1, timed_k1 = k1_phase(
+        [("seeded 270x480", seeded_kf, seeded_cur, seeded_pose, False),
+         ("real 270x480", real_kf, real_cur, real_pose, True)], cfg, dev, gpu)
+
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
     expect = {"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
+    check(n_track + n_kf == K1_STEPS["gn_run_sequence"][0],
+          "K1's hand count of phase 4 is the schedule's")
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.synchronize()
         reg_kernel.reset_launches()
+        gn_kernel.reset_launches()
         t0 = time.perf_counter()
         res = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
                                   out_dir=out)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(reg_kernel.launches)
+        launches_k1 = {"gn_run_sequence": dict(gn_kernel.launches)}
         warmups = {"gn_run_sequence": dict(reg_kernel.warmup_launches)}
+        warmups_k1 = {"gn_run_sequence": dict(gn_kernel.warmup_launches)}
         poses_file = ellc_io.read_pose_file(os.path.join(out,
                                                          "poses_orig.txt"))
         matches = ellc_io.read_pose_file(os.path.join(out, "matchframes.txt"))
     print(f"schedule: {n_track} track_refine + {n_kf} keyframe steps; K3 "
-          f"launches {launches}, expected {expect}; the graphs' warm-ups "
-          f"launched {warmups['gn_run_sequence']} more")
+          f"launches {launches}, expected {expect}; K1 launches "
+          f"{launches_k1['gn_run_sequence']}, expected "
+          f"{k1_expected('gn_run_sequence')}; the graphs' warm-ups launched "
+          f"{warmups['gn_run_sequence']} and "
+          f"{warmups_k1['gn_run_sequence']} more")
     check(launches == expect, "K3 launch counts match the frame schedule")
+    check(launches_k1["gn_run_sequence"] == k1_expected("gn_run_sequence"),
+          "K1 launch counts match the frame schedule")
     check(len(res.frame_ids) == MAIN_FRAMES - 1, "every frame tracked")
     check(len(matches) == n_kf, "one matchframes line per keyframe")
     check(poses_file.shape == (MAIN_FRAMES - 1, 10), "poses_orig.txt shape")
@@ -844,6 +1177,7 @@ def main() -> int:
     stats6 = {}
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
+    gn_kernel.reset_launches()
     t0 = time.perf_counter()
     res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]),
                                lc_cfg.replace(do_sim3_refine=True), dev,
@@ -852,7 +1186,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall6 = time.perf_counter() - t0
     launches6 = dict(reg_kernel.launches)
+    launches_k1["lc_bootstrap"] = dict(gn_kernel.launches)
     warmups["lc_bootstrap"] = dict(reg_kernel.warmup_launches)
+    warmups_k1["lc_bootstrap"] = dict(gn_kernel.warmup_launches)
+    print(f"K1 launches {launches_k1['lc_bootstrap']}, expected "
+          f"{k1_expected('lc_bootstrap')}")
+    check(launches_k1["lc_bootstrap"] == k1_expected("lc_bootstrap"),
+          "K1 launch counts match the LC bootstrap")
     print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
           f"batch(es), {len(res6.frame_ids)} corrected poses in "
           f"{wall6:.3f} s; phases (s) "
@@ -909,13 +1249,20 @@ def main() -> int:
     stats7 = {}
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
+    gn_kernel.reset_launches()
     t0 = time.perf_counter()
     res7 = ellc_lc.run_ellc_lc(iter(lc_frames[:LC_FRAMES]), lc_cfg, dev,
                                stats=stats7)
     torch.cuda.synchronize()
     wall7 = time.perf_counter() - t0
     launches7 = dict(reg_kernel.launches)
+    launches_k1["lc_mode"] = dict(gn_kernel.launches)
     warmups["lc_mode"] = dict(reg_kernel.warmup_launches)
+    warmups_k1["lc_mode"] = dict(gn_kernel.warmup_launches)
+    print(f"K1 launches {launches_k1['lc_mode']}, expected "
+          f"{k1_expected('lc_mode')} (143 tracked and 143 replayed frames)")
+    check(launches_k1["lc_mode"] == k1_expected("lc_mode"),
+          "K1 launch counts match the LC schedule with replays")
     n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
                  == 0)
     print(f"K3 launches {launches7}, expected {expect7}; "
@@ -948,12 +1295,19 @@ def main() -> int:
     expect8 = RECOVERY_LAUNCHES
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
+    gn_kernel.reset_launches()
     t0 = time.perf_counter()
     res8 = runner.run_sequence(iter(rec_frames), rec_cfg, dev)
     torch.cuda.synchronize()
     wall8 = time.perf_counter() - t0
     launches8 = dict(reg_kernel.launches)
+    launches_k1["recovery"] = dict(gn_kernel.launches)
     warmups["recovery"] = dict(reg_kernel.warmup_launches)
+    warmups_k1["recovery"] = dict(gn_kernel.warmup_launches)
+    print(f"K1 launches {launches_k1['recovery']}, expected "
+          f"{k1_expected('recovery')}")
+    check(launches_k1["recovery"] == k1_expected("recovery"),
+          "K1 launch counts match the recovery schedule")
     recs = res8.extra["recoveries"]
     pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
     g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
@@ -1028,10 +1382,13 @@ def main() -> int:
         graphs.release((V,))
         if V == BATCH_VIDEOS:
             reg_kernel.reset_launches()
+            gn_kernel.reset_launches()
         states9, outs9, wall9, peak9 = batched_run(V)
         if V == BATCH_VIDEOS:
             launches9 = dict(reg_kernel.launches)
+            launches_k1["batched_videos"] = dict(gn_kernel.launches)
             warmups["batched_videos"] = dict(reg_kernel.warmup_launches)
+            warmups_k1["batched_videos"] = dict(gn_kernel.warmup_launches)
         pred = predicted[V].peak_bytes
         pools = {r["pool"]: r["pool_bytes"] for r in graphs.stats()
                  if r["lead"] == (V,)}
@@ -1051,6 +1408,11 @@ def main() -> int:
     print(f"K3 launches {launches9}, expected {BATCH_LAUNCHES} (one "
           f"video's count for {BATCH_VIDEOS} videos)")
     check(launches9 == BATCH_LAUNCHES, "the videos share each K3 launch")
+    print(f"K1 launches {launches_k1['batched_videos']}, expected "
+          f"{k1_expected('batched_videos')} (one video's count for "
+          f"{BATCH_VIDEOS} videos)")
+    check(launches_k1["batched_videos"] == k1_expected("batched_videos"),
+          "the videos share each K1 launch")
     poses9 = torch.cat([o.pose_wrt_world for o in outs9], 1).cpu().numpy()
     seeds9 = torch.cat([o.seeds for o in outs9], 1).cpu().numpy()
     check(poses9.shape == (BATCH_VIDEOS, n_per - 1, 6), "batched outputs")
@@ -1138,13 +1500,17 @@ def main() -> int:
         # the CLI in its own process; the wrapper resets K3's counts just
         # before cli.main and prints them just after
         code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-                f"from {PKG}.ops import reg_kernel; "
+                f"from {PKG}.ops import gn_kernel, reg_kernel; "
                 f"from {PKG}.runtime import cli; "
                 f"reg_kernel.reset_launches(); "
+                f"gn_kernel.reset_launches(); "
                 f"rc = cli.main(sys.argv[1:]); "
                 f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
                 f"print('K3 warm-up launches ' + "
                 f"json.dumps(reg_kernel.warmup_launches)); "
+                f"print('K1 launches ' + json.dumps(gn_kernel.launches)); "
+                f"print('K1 warm-up launches ' + "
+                f"json.dumps(gn_kernel.warmup_launches)); "
                 f"sys.exit(rc)")
         argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
                 str(syn_cfg.rows), "--cols", str(syn_cfg.cols),
@@ -1160,6 +1526,10 @@ def main() -> int:
                                           proc.stdout).group(1))
         warmups["synthetic"] = json.loads(re.search(
             r"K3 warm-up launches (\{.*\})", proc.stdout).group(1))
+        launches_k1["synthetic"] = json.loads(re.search(
+            r"K1 launches (\{.*\})", proc.stdout).group(1))
+        warmups_k1["synthetic"] = json.loads(re.search(
+            r"K1 warm-up launches (\{.*\})", proc.stdout).group(1))
         gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
         orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
     ids10 = orig10[:, 0].astype(int)
@@ -1177,6 +1547,10 @@ def main() -> int:
           f"on {gpu}")
     check(launches10 == SYNTHETIC_LAUNCHES, "K3 launch counts match the "
           "synthetic schedule")
+    check(n_track + n_kf == K1_STEPS["synthetic"][0]
+          and launches_k1["synthetic"] == k1_expected("synthetic"),
+          f"K1 launch counts {launches_k1['synthetic']} match the synthetic "
+          f"schedule's {k1_expected('synthetic')}")
     check(ids10.tolist() == syn_golden["frame_ids"], "synthetic frame ids")
     check(bool(np.isfinite(orig10).all()), "synthetic poses finite")
     check(d_gt <= TRAJ_TOL, "poses_gt.txt matches the JAX trajectory")
@@ -1285,8 +1659,11 @@ def main() -> int:
           f"of sqrt(H_ii E) (tol {SHARDED_GN_TOL}); Sim(3) graph of "
           f"{graph12.nodes.shape[0]} nodes and {graph12.edges.shape[0]} "
           f"edges: max |node diff| {d_nodes:.3g} (tol {SHARDED_BA_TOL})")
+    print(f"K1 launches of each rank: {[rk['k1'] for rk in ranks]}")
     check(d_H <= SHARDED_GN_TOL and d_g <= SHARDED_GN_TOL,
           "the two-rank GN system equals the single-process one")
+    check(all(rk["k1"] == {"gn_linearize": 1, "gn_finish": 0}
+              for rk in ranks), "each rank linearizes its rows with K1a")
     check(d_nodes <= SHARDED_BA_TOL, "the two-rank Sim(3) refinement "
           "equals refine")
 
@@ -1390,14 +1767,16 @@ def main() -> int:
         for k in range(len(imgs) - 1):
             rot = None if rots is None else rots[k]
             reg_kernel.reset_launches()
+            gn_kernel.reset_launches()
             g, og = pipeline.track_refine_step(g, imgs[k], c, replay, rot)
-            n_g = dict(reg_kernel.launches)
+            n_g = (dict(reg_kernel.launches), dict(gn_kernel.launches))
             reg_kernel.reset_launches()
+            gn_kernel.reset_launches()
             e, oe = pipeline._track_refine_step(e, imgs[k], c, replay, rot)
-            n_e = dict(reg_kernel.launches)
+            n_e = (dict(reg_kernel.launches), dict(gn_kernel.launches))
             torch.cuda.synchronize()
-            check(n_g == n_e, f"{label}: K3 launches of a replay {n_g} equal "
-                  f"the eager step's {n_e}")
+            check(n_g == n_e, f"{label}: K3 and K1 launches of a replay "
+                  f"{n_g} equal the eager step's {n_e}")
             d = leaf_diffs((g, og), (e, oe))
             check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
                   f"graphed equals eager bit for bit (max |diff| "
@@ -1469,9 +1848,10 @@ def main() -> int:
               f"rotation {r['init_rotation']}, window "
               f"{pipeline._needs_window(r['cfg'])}, "
               f"{r['cfg'].rows}x{r['cfg'].cols}): nodes {r['nodes']} "
-              f"(the eager GN frame: 24,475 launches, "
+              f"(the eager GN frame before K1: 24,475 launches, "
               f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
-              f"warm-up launched {r['warmup_k3']}); capture "
+              f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
+              f"(warm-up {r['warmup_k1']}); capture "
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
@@ -1513,7 +1893,7 @@ def main() -> int:
     by_path = {"gn_run_sequence": launches, "lc_bootstrap": launches6,
                "lc_mode": launches7, "recovery": launches8,
                "batched_videos": launches9, "synthetic": launches10}
-    print(json.dumps({"kernels": [
+    k3_rows = [
         {"name": f"reg_kernel.{name}", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches[name],
          "launches_by_path": {k: v[name] for k, v in by_path.items()},
@@ -1531,7 +1911,35 @@ def main() -> int:
                             "plain_ms": timed_videos[name][1],
                             "bound_ms": timed_videos[name][2],
                             "bound_by": timed_videos[name][3]}}
-        for name in ("do_regularization", "regularize")]}))
+        for name in ("do_regularization", "regularize")]
+    # K1: headline numbers at level 0 for one video (the main path's
+    # finest level), every level and V under "levels"
+    k1_rows = [
+        {"name": f"gn_kernel.{name}", "route": "cuda",
+         "source": os.path.join(PKG, "csrc", "gn_kernel.cu"),
+         "replaces": "egomotion_with_local_loop_closures_tpu/track/"
+                     "alignment.py:89",
+         "launches": launches_k1["gn_run_sequence"][name],
+         "launches_by_path": {k: v[name] for k, v in launches_k1.items()},
+         "warmup_launches_by_path": {k: v[name]
+                                     for k, v in warmups_k1.items()},
+         "max_abs_err": worst_k1[name],
+         "max_abs_err_of": ("max over H and g of |diff| / scale (H: its "
+                            "largest entry, g_i: sqrt(H_ii E))"
+                            if name == "gn_linearize" else
+                            "max |pose component diff|"),
+         "ms": timed_k1[(0, 1)][name][0],
+         "plain_ms": timed_k1[(0, 1)][name][1],
+         "bound_ms": timed_k1[(0, 1)][name][2],
+         "bound_by": timed_k1[(0, 1)][name][3], "library_ms": None,
+         "plain_iteration_ms": timed_k1[(0, 1)]["plain_iteration"],
+         "levels": {f"level{lv}_V{V}": {
+             "ms": t[name][0], "plain_ms": t[name][1],
+             "bound_ms": t[name][2], "bound_by": t[name][3],
+             "plain_iteration_ms": t["plain_iteration"]}
+             for (lv, V), t in sorted(timed_k1.items())}}
+        for name in ("gn_linearize", "gn_finish")]
+    print(json.dumps({"kernels": k3_rows + k1_rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
-import os
 import re
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Iterator, Optional
 
@@ -46,12 +42,11 @@ from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
 from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
     FIELDS, DepthMapState)
+from egomotion_with_local_loop_closures_tpu_torch import ops
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "reg_kernel.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+SOURCE: Path = ops.CSRC / "reg_kernel.cu"
+BUILD_DIR, NVCC_FLAGS = ops.BUILD_DIR, ops.NVCC_FLAGS
+_find_nvcc = ops.find_nvcc
 
 # Launches on the CUDA path since the last reset_launches(), per wrapper.
 launches: Dict[str, int] = {"do_regularization": 0, "regularize": 0}
@@ -102,34 +97,10 @@ def wrapper_of(kernel_name: str) -> Optional[str]:
     return "do_regularization" if m.group(1) == "1" else "regularize"
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the K3 CUDA kernel cannot be "
-                           "built (install the CUDA toolkit or put nvcc on "
-                           "PATH)")
-    return nvcc
-
-
 def build() -> Path:
     """Compile ``csrc/reg_kernel.cu`` unless a library of this exact source
     and flag set is already built; returns the library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libellc_reg_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return ops.build(SOURCE, "ellc_reg")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

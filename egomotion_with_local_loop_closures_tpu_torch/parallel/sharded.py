@@ -28,8 +28,10 @@ asks for the CPU.  Whether V videos fit on the card is checked by
 3 threads striping the rows of the template with per-thread 6x6 partials
 summed at the join (``src/PixelWisePyramid.cpp:416-455``): each rank of
 the ``pixel`` group linearizes its block of the template's rows against
-the whole current image, and H and g are summed by one ``all_reduce``.
-The JAX package does this with ``shard_map`` and ``psum``.
+the whole current image (on the card one launch of K1a,
+``ops/gn_kernel.py``, at the block's row offset), and H and g are summed
+by one ``all_reduce``.  The JAX package does this with ``shard_map`` and
+``psum``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.geom import lie, linear
+from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
 from egomotion_with_local_loop_closures_tpu_torch.runtime import pipeline
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
 
@@ -154,7 +157,7 @@ def sharded_gn_quantities(kf: alignment.KeyframeLevel,
 
     kf_local = alignment.KeyframeLevel(block(kf.image), block(kf.depth),
                                        block(kf.var))
-    H, g, _, _ = alignment._gn_quantities(
+    H, g, _, _ = gn_kernel.gn_quantities(
         kf_local, cur, pose, cfg.level_intrinsics(level), cfg,
         y_offset=rank * per)
     # one collective for both: H's 36 entries and g's 6

@@ -34,12 +34,14 @@ in the same order as when they run eagerly, so a replay gives the eager
 step's bits, up to the float atomics of ``propagate``'s ``index_add_`` in
 the keyframe step, which differ between two eager runs too.
 
-K3's launch counts (``ops/reg_kernel.launches``): the warm-up's launches
-are counted apart (``reg_kernel.warmup_launches``), and the capture's
-wrapper calls, which launch nothing, are counted only to check the graph:
-its K3 kernel nodes, found by their functions' names, must be as many,
-wrapper by wrapper.  Each replay adds those nodes to ``launches``, so the
-counts are the launches of the replays, as on the eager path.
+The launch counts of the port's hand-written kernels, K3
+(``ops/reg_kernel.launches``) and K1 (``ops/gn_kernel.launches``): the
+warm-up's launches are counted apart (each module's ``warmup_launches``),
+and the capture's wrapper calls, which launch nothing, are counted only
+to check the graph: its K3 and K1 kernel nodes, found by their functions'
+names, must be as many, wrapper by wrapper.  Each replay adds those nodes
+to ``launches``, so the counts are the launches of the replays, as on the
+eager path.
 
 A failed capture or replay raises: nothing falls back to running the step
 eagerly on the card.
@@ -47,6 +49,7 @@ eagerly on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import time
@@ -54,7 +57,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
+from egomotion_with_local_loop_closures_tpu_torch.ops import (gn_kernel,
+                                                            reg_kernel)
+
+# the modules of the hand-written kernels whose launches a graph counts,
+# by the name of the kernel: K3 and K1
+_KERNELS = {"k3": reg_kernel, "k1": gn_kernel}
 
 # CUgraphNodeType values of libcuda's graph API
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
@@ -118,8 +126,10 @@ class Graph:
     out_spec: Any
     # output leaf -> input leaf, for outputs that are static inputs
     through: Dict[int, int]
-    k3: Dict[str, int]          # K3 nodes, so launches of one replay
-    warmup_k3: Dict[str, int]   # K3 launches of the eager warm-up
+    # per kernel ("k3", "k1"): its nodes by wrapper, so the launches of
+    # one replay, and the launches of the eager warm-up
+    kernel_nodes: Dict[str, Dict[str, int]]
+    warmup: Dict[str, Dict[str, int]]
     pool: Tuple[int, int]
     lead: Tuple[int, ...]       # the video axis, () for one video
     capture_s: float            # warm-up and capture, host seconds
@@ -139,12 +149,13 @@ def _check(err: int, call: str) -> None:
 
 
 def _graph_nodes(graph: torch.cuda.CUDAGraph
-                 ) -> Tuple[Dict[str, int], Dict[str, int]]:
+                 ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     """The nodes of a captured (not yet instantiated) graph by type, from
     ``raw_cuda_graph()`` and libcuda's cuGraphGetNodes (the runtime's
-    cudaGraphGetNodes), and its K3 kernel nodes by wrapper, from each
-    kernel node's function (cuGraphKernelNodeGetParams) and its name
-    (cuFuncGetName, or cuKernelGetName for a library kernel)."""
+    cudaGraphGetNodes), and its K3 and K1 kernel nodes by wrapper
+    (``{"k3": {...}, "k1": {...}}``), from each kernel node's function
+    (cuGraphKernelNodeGetParams) and its name (cuFuncGetName, or
+    cuKernelGetName for a library kernel)."""
     cuda = ctypes.CDLL("libcuda.so.1")
     g = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -152,7 +163,7 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
     nodes = (ctypes.c_void_p * n.value)()
     _check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     counts: Dict[str, int] = {}
-    k3 = {k: 0 for k in reg_kernel.launches}
+    ours = _zero_counts()
     kind = ctypes.c_int(0)
     params = _KernelNodeParams()
     name = ctypes.c_char_p()
@@ -174,10 +185,26 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
             _check(cuda.cuKernelGetName(ctypes.byref(name),
                                         ctypes.c_void_p(params.kern)),
                    "cuKernelGetName")
-        wrapper = reg_kernel.wrapper_of(name.value.decode())
-        if wrapper is not None:
-            k3[wrapper] += 1
-    return counts, k3
+        for label, mod in _KERNELS.items():
+            wrapper = mod.wrapper_of(name.value.decode())
+            if wrapper is not None:
+                ours[label][wrapper] += 1
+    return counts, ours
+
+
+def _zero_counts() -> Dict[str, Dict[str, int]]:
+    return {label: {k: 0 for k in mod.launches}
+            for label, mod in _KERNELS.items()}
+
+
+@contextlib.contextmanager
+def _counting_into(counts: Dict[str, Dict[str, int]]) -> Iterator[None]:
+    """Each kernel module's wrapper calls into ``counts[label]`` while the
+    block runs."""
+    with contextlib.ExitStack() as stack:
+        for label, mod in _KERNELS.items():
+            stack.enter_context(mod.counting_into(counts[label]))
+        yield
 
 
 def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
@@ -190,24 +217,25 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
     stream = _streams[device]
     static_in = [t.detach().clone(memory_format=torch.contiguous_format)
                  for t in leaves]
-    warm = {k: 0 for k in reg_kernel.launches}
-    calls = {k: 0 for k in reg_kernel.launches}
+    warm, calls = _zero_counts(), _zero_counts()
     t0 = time.perf_counter()
     stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream), reg_kernel.counting_into(warm):
+    with torch.cuda.stream(stream), _counting_into(warm):
         fn(*tree_unflatten(spec, static_in))            # warm-up
     torch.cuda.current_stream(device).wait_stream(stream)
-    for k, n in warm.items():
-        reg_kernel.warmup_launches[k] += n
+    for label, mod in _KERNELS.items():
+        for k, n in warm[label].items():
+            mod.warmup_launches[k] += n
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, pool=pool, stream=stream), \
-            reg_kernel.counting_into(calls):
+            _counting_into(calls):
         out = fn(*tree_unflatten(spec, static_in))
     t1 = time.perf_counter()
-    nodes, k3 = _graph_nodes(graph)
-    if k3 != calls:
-        raise RuntimeError(f"the captured graph holds K3 nodes {k3}, but "
-                           f"the capture made the wrapper calls {calls}")
+    nodes, ours = _graph_nodes(graph)
+    if ours != calls:
+        raise RuntimeError(f"the captured graph holds the kernel nodes "
+                           f"{ours}, but the capture made the wrapper calls "
+                           f"{calls}")
     graph.instantiate()
     t2 = time.perf_counter()
     out_leaves, out_spec = tree_flatten(out)
@@ -215,8 +243,8 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
     through = {j: ids[id(t)] for j, t in enumerate(out_leaves)
                if id(t) in ids}
     return Graph(graph=graph, static_in=static_in, static_out=out_leaves,
-                 out_spec=out_spec, through=through, k3=k3,
-                 warmup_k3=warm, pool=pool,
+                 out_spec=out_spec, through=through, kernel_nodes=ours,
+                 warmup=warm, pool=pool,
                  lead=lead, capture_s=t1 - t0, instantiate_s=t2 - t1,
                  nodes=nodes)
 
@@ -247,7 +275,8 @@ def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
         for dst, src in zip(g.static_in, leaves):
             dst.copy_(src)
         g.graph.replay()
-    reg_kernel.add_launches(g.k3)
+    for label, mod in _KERNELS.items():
+        mod.add_launches(g.kernel_nodes[label])
     clones: Dict[int, torch.Tensor] = {}
     out = []
     for j, t in enumerate(g.static_out):
@@ -302,7 +331,7 @@ def pool_bytes(pool: Tuple[int, int]) -> int:
 def stats() -> List[dict]:
     """One line per captured graph: the step, its key's config, replay,
     rotation and video axis, capture and instantiate seconds, nodes by
-    type, K3 launches a replay and of the warm-up, and the pool's
+    type, K3 and K1 launches a replay and of the warm-up, and the pool's
     bytes."""
     rows = []
     for key, g in _graphs.items():
@@ -311,7 +340,10 @@ def stats() -> List[dict]:
                          init_rotation=rot, lead=g.lead,
                          device=str(device), capture_s=g.capture_s,
                          instantiate_s=g.instantiate_s, nodes=dict(g.nodes),
-                         k3=dict(g.k3), warmup_k3=dict(g.warmup_k3),
+                         **{label: dict(g.kernel_nodes[label])
+                            for label in _KERNELS},
+                         **{f"warmup_{label}": dict(g.warmup[label])
+                            for label in _KERNELS},
                          pool=g.pool,
                          pool_bytes=pool_bytes(g.pool), cfg=cfg))
     return rows

@@ -34,8 +34,9 @@ On the card (``@pytest.mark.cuda``, skipped here; run there with
 ``python -m pytest tests/test_torch_graphs.py -m cuda --noconftest``):
 every replayed track_refine step equals its eager body bit for bit (NaN
 equal to NaN), the keyframe step equals it up to ``propagate``'s
-``index_add_`` atomics, and K3's launch counts of a replay equal the
-eager step's.
+``index_add_`` atomics, and K3's and K1's launch counts of a replay equal
+the eager step's (K1: one launch of each of its kernels per GN iteration,
+the sum of the level iteration counts).
 """
 
 import dataclasses
@@ -50,7 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from egomotion_with_local_loop_closures_tpu_torch.config import (
     PARITY_OVERRIDES, TEST_CONFIG)
 from egomotion_with_local_loop_closures_tpu_torch.geom import linear
-from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
+from egomotion_with_local_loop_closures_tpu_torch.ops import (gn_kernel,
+                                                            reg_kernel)
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     graphs, io as ellc_io, pipeline, runner)
@@ -309,15 +311,19 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
     rot = None if rot is None else rot.to(cuda_device)
     replay = path == "replay"
     eager, graphed = state, state
+    n_iters = sum(cfg.max_iters_replay if replay else cfg.max_iters)
     for _ in range(3):
         reg_kernel.reset_launches()
+        gn_kernel.reset_launches()
         eager, out_e = pipeline._track_refine_step(eager, image, cfg,
                                                    replay, rot)
-        counts = dict(reg_kernel.launches)
+        counts = (dict(reg_kernel.launches), dict(gn_kernel.launches))
+        assert counts[1] == {"gn_linearize": n_iters, "gn_finish": n_iters}
         reg_kernel.reset_launches()
+        gn_kernel.reset_launches()
         graphed, out_g = pipeline.track_refine_step(graphed, image, cfg,
                                                     replay, rot)
-        assert reg_kernel.launches == counts
+        assert (reg_kernel.launches, gn_kernel.launches) == counts
         _assert_bits((graphed, out_g), (eager, out_e))
     kf_e = pipeline._keyframe_step(eager, image, cfg, replay, rot)
     kf_g = pipeline.keyframe_step(graphed, image, cfg, replay, rot)
