@@ -7,10 +7,11 @@ Phases, each announced on its own line:
 
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
-2. build: compiles the K3 kernel (csrc/reg_kernel.cu) and the two K1
-   kernels (csrc/gn_kernel.cu) from this checkout, one nvcc each, started
-   together, and prints each kernel's registers, stack and shared memory
-   and its static SASS instruction count (cuobjdump);
+2. build: compiles the K3 kernel (csrc/reg_kernel.cu), the two K1
+   kernels (csrc/gn_kernel.cu) and the K2 kernel (csrc/stereo_kernel.cu)
+   from this checkout, one nvcc each, started together, and prints each
+   kernel's registers, stack and shared memory and its static SASS
+   instruction count (cuobjdump);
 3. K3 against its plain PyTorch version on the card, bit for bit (NaN
    equal to NaN), on a numpy-seeded state with holes and on a real state
    from the pipeline at 480x270, and on states whose border pixels are
@@ -39,10 +40,24 @@ Phases, each announced on its own line:
    level); then each kernel's time per launch from CUDA-graph replays, in
    turns with the plain linearization, update and iteration, beside its
    bound;
+3c. K2 against its plain PyTorch version (depth/stereo.py::plain_observe)
+   on the card, for one video and for eight in one call (video b: the
+   planes rolled by (b, 2b) pixels, the pose moved by 2e-4 b): numpy-seeded
+   planes (3b's images, phase 3's seeded state or no hypothesis) and phase
+   3's keyframe with the next frame of run_gn at its tracked pose, from no
+   hypothesis (the create path), from the pipeline's state (the update
+   path) and from that state with a quarter of its variances near max_var.
+   Each video must equal the plain twin bit for bit in every output plane
+   (NaN equal to NaN), its counts exactly; each video of an eight-video
+   call bit-equal to its own call; the plain twin's codes and EKF branches
+   are printed, and the real frames must reach every branch.  Then K2's
+   and the plain version's time per call from CUDA-graph replays at V = 1
+   and 8 on the update path, in turns, beside K2's bound;
 4. main path: runner.run_sequence over the first 129 frames of
-   reference_build/run_gn at 480x270 under the parity config; K3's and
-   K1's launch counts must equal what the frame schedule implies (K1: two
-   launches a GN iteration, 32 iterations a tracked frame), every pose must be
+   reference_build/run_gn at 480x270 under the parity config; K3's, K1's
+   and K2's launch counts must equal what the frame schedule implies (K1:
+   two launches a GN iteration, 32 iterations a tracked frame; K2: one a
+   track_refine step), every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
@@ -146,19 +161,21 @@ Phases, each announced on its own line:
    last place); the same for two batched videos and for replay steps with
    an initial rotation.  Prints each captured graph's kernel nodes (from
    raw_cuda_graph() and libcuda's cuGraphGetNodes) beside the eager
-   profile's 24,475 launches a frame before K1, its K3 and K1 nodes
+   profile's 24,475 launches a frame before K1, its K3, K1 and K2 nodes
    (found by name) and its warm-up's launches, its capture and
    instantiate seconds and its pool's bytes, and GN frames/s graphed
    beside eager over the same 16 frames, in turns.
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3 and K1 kernel nodes of its
+captured graph, and a replay counts the K3, K1 and K2 kernel nodes of its
 graph (checked at capture against the wrapper calls the capture made);
 the eager warm-up before each capture counts apart, under
 ``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
-and 10) sets K3's and K1's launch counts to 0 just before it and reads
-them just after, and holds them to a hand count of its schedule.  The
+and 10) sets K3's, K1's and K2's launch counts to 0 just before it and
+reads them just after, and holds them to a hand count of its schedule;
+phase 14 holds each replayed track_refine step to the eager step's
+launches, one of K2.  The
 last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -304,6 +321,41 @@ def k1_expected(path):
     return {"gn_linearize": n, "gn_finish": n}
 
 
+# K2 (ops/stereo_kernel.py): one launch a track_refine step (each runs
+# stereo.observe once, for all videos), replayed steps included; a keyframe
+# step runs none.  track_refine steps per path, from the schedules counted
+# for K3 above: phase 4 112 (128 tracked frames, 16 of them keyframe
+# steps); phase 6 69; phase 7 the bootstrap batch's 69 and its replay's
+# 69, then two batches of 28, each replayed: 69 + 69 + 4 x 28 = 250;
+# phase 8 34 + 5 = 39; phase 9 6 + 7 + 7 + 7 = 27, one video's count
+# whatever V; phase 10 56.
+K2_STEPS = {"gn_run_sequence": 112, "lc_bootstrap": 69, "lc_mode": 250,
+            "recovery": 39, "batched_videos": 27, "synthetic": 56}
+# Phase 3c: K2 and its plain twin round alike on the card (the twin's pose
+# blocks are geom/lie.py's entry-by-entry products, its divisions by a
+# config value multiplications by the float32 reciprocal, as in the
+# kernel), so every output plane must be bit-equal; eight videos in one call
+K2_VIDEOS = 8
+# K2's float32 operations, counted by hand from csrc/stereo_kernel.cu (each
+# add, sub, mul, div, sqrt, abs, floor, ceil, min, max and float compare
+# one): the gates and epipolar direction of every pixel 32; the search band
+# and segment of a pixel that runs 160; the descriptor, the four samples
+# before the walk, the subpixel step, triangulation, variance model and
+# EKF rules of a pixel whose segment passed 380; a step of its walk (the
+# step test, one bilinear sample, the SSD, the correlation and both argmin
+# updates) 68
+K2_OPS_PIXEL, K2_OPS_RUN, K2_OPS_WALKED, K2_OPS_STEP = 32, 160, 380, 68
+# bytes a pixel read once and written once: the state (five float planes,
+# int32 and bool) in and out, the keyframe's image, gradients and max
+# gradient and the current image; per video the pose and the two counts
+K2_BYTES_PIXEL, K2_BYTES_VIDEO = 25 + 20 + 25, 24 + 8
+
+
+def k2_expected(path):
+    """K2's launches on a driven path, by the hand count above."""
+    return {"stereo_observe": K2_STEPS[path]}
+
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -406,12 +458,12 @@ def compare(ref, got, fields):
 
 
 def kernel_label(mangled):
-    """reg_kernel<kFill, kOccl>, gn_linearize or gn_finish from a mangled
-    kernel name."""
+    """reg_kernel<kFill, kOccl>, gn_linearize, gn_finish or stereo_observe
+    from a mangled kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
     if m:
         return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
-    m = re.search(r"\d+(gn_linearize|gn_finish)E", mangled)
+    m = re.search(r"\d+(gn_linearize|gn_finish|stereo_observe)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -782,6 +834,176 @@ def k1_times(kf, cur, pose, intr, cfg, term_w, gpu, label, level):
     return out
 
 
+def k2_videos(args, V):
+    """observe's arguments for V videos: the planes rolled by (b, 2b)
+    pixels for video b, the pose moved by 2e-4 b in each component; V = 1
+    gives the arguments as they are."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS, DepthMapState)
+    st, *planes, pose = args
+    if V == 1:
+        return args
+
+    def stack(t):
+        return torch.stack([torch.roll(t, (b, 2 * b), (0, 1))
+                            for b in range(V)])
+    return (DepthMapState(**{n: stack(getattr(st, n)) for n in FIELDS}),
+            *map(stack, planes),
+            pose + 2e-4 * torch.arange(V, device=pose.device,
+                                       dtype=torch.float32)[:, None])
+
+
+def k2_video(args, b):
+    """Video b of batched observe arguments."""
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS, DepthMapState)
+    st, *rest = args
+    return (DepthMapState(**{n: getattr(st, n)[b] for n in FIELDS}),
+            *(t[b] for t in rest))
+
+
+def k2_differ(got, want):
+    """Per video (one entry for an unbatched call): (pixels not bit-equal
+    to the plain twin in some output plane, NaN equal to NaN; the largest
+    |float difference| over every pixel)."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS)
+    shape = want.state.valid.shape
+    not_bits = torch.zeros(shape, dtype=torch.bool,
+                           device=want.state.valid.device)
+    err = torch.zeros(shape, device=not_bits.device)
+    for n in FIELDS:
+        a, b = getattr(got.state, n), getattr(want.state, n)
+        if b.dtype.is_floating_point:
+            err = torch.maximum(err, (a - b).abs().nan_to_num(0.0))
+            not_bits |= ~((a == b) | (a.isnan() & b.isnan()))
+        else:
+            not_bits |= a != b
+    return [(int(nb.sum()), float(e.max()))
+            for nb, e in zip(*(x.reshape((-1,) + shape[-2:])
+                               for x in (not_bits, err)))]
+
+
+def same_bits(a, b):
+    """Equal bit for bit, NaN equal to NaN."""
+    import torch
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+def k2_work(args, cfg, branches):
+    """(compulsory bytes, float32 operations on this data) of one K2 call
+    on ``args``, from the plain twin's decisions: every pixel's gates, the
+    pixels that run, those whose segment passed and the steps they
+    walked."""
+    import math
+    st = args[0]
+    n_px = st.valid.numel()
+    V = math.prod(st.valid.shape[:-2])
+    run = branches["run"]
+    walked = run & ((branches["code"] == 0) | (branches["code"] == -2)
+                    | (branches["code"] == -3))
+    steps = int(branches["steps"][walked].sum())
+    ops = (K2_OPS_PIXEL * n_px + K2_OPS_RUN * int(run.sum())
+           + K2_OPS_WALKED * int(walked.sum()) + K2_OPS_STEP * steps)
+    return K2_BYTES_PIXEL * n_px + K2_BYTES_VIDEO * V, ops
+
+
+def k2_phase(cases, cfg, gpu):
+    """Phase 3c: K2 against its plain twin on ``cases``, each (label,
+    observe's arguments, timed), for one video and for K2_VIDEOS (see
+    k2_videos): each video bit-equal to the twin, its counts equal, and,
+    for K2_VIDEOS, bit-equal to its own call.  Returns the worst (pixels
+    not bit-equal in a video, |float difference|),
+    the plain twin's branch counts by case, and for the timed case {V:
+    (ms, plain ms, bound ms, bound by)}."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth import stereo
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS)
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        stereo_kernel)
+    branch_names = ("create_ok", "create_blacklist", "u_notfound",
+                    "inconsistent", "u_success", "nf_kill")
+    worst = [0, 0.0]
+    branch_counts, timed = {}, {}
+    for label, args0, is_timed in cases:
+        for V in (1, K2_VIDEOS):
+            args = k2_videos(args0, V)
+            got = stereo_kernel.observe(*args, cfg)
+            want = stereo.plain_observe(*args, cfg)
+            br = stereo.observe_branches(*args, cfg)
+            torch.cuda.synchronize()
+            per = k2_differ(got, want)
+            dc = int((got.num_created - want.num_created).abs().max())
+            du = int((got.num_updated - want.num_updated).abs().max())
+            worst = [max([worst[0]] + [nb for nb, _ in per]),
+                     max([worst[1]] + [e for _, e in per])]
+            counts = {k: int(br[k].sum()) for k in branch_names}
+            codes = {c: int((br["run"] & (br["code"] == c)).sum())
+                     for c in (0, -1, -2, -3, -4)}
+            branch_counts[f"{label} V={V}"] = counts
+            check(all(nb == 0 for nb, _ in per) and dc == du == 0,
+                  f"K2 on {label} V={V}: every video bit-equal to the plain "
+                  f"twin (pixels not bit-equal {[nb for nb, _ in per]}), "
+                  f"counts equal (differ by {dc}, {du})")
+            bits = ""
+            if V > 1:
+                for b in range(V):
+                    alone = stereo_kernel.observe(*k2_video(args, b), cfg)
+                    same = all(same_bits(getattr(alone.state, f),
+                                         getattr(got.state, f)[b])
+                               for f in FIELDS)
+                    check(same and int(alone.num_created)
+                          == int(got.num_created[b]) and int(
+                              alone.num_updated) == int(got.num_updated[b]),
+                          f"K2 video {b} of {V} on {label} equals its own "
+                          f"call bit for bit")
+                bits = (f"; each of the {V} videos bit-equal to its own "
+                        f"call")
+            print(f"K2 {label} V={V}: pixels not bit-equal to the plain "
+                  f"twin in every plane, per video {[nb for nb, _ in per]} "
+                  f"(must be 0), max |float diff| "
+                  f"{max(e for _, e in per):.3g}; "
+                  f"created {got.num_created.tolist()} (plain "
+                  f"{want.num_created.tolist()}), updated "
+                  f"{got.num_updated.tolist()} (plain "
+                  f"{want.num_updated.tolist()}); plain twin's codes of "
+                  f"the pixels that run {codes}, branches {counts}{bits}")
+            if is_timed:
+                timed[V] = k2_times(args, cfg, br, gpu, label)
+    return worst, branch_counts, timed
+
+
+def k2_times(args, cfg, branches, gpu, label):
+    """Device time per call of K2 and of the plain twin from CUDA-graph
+    replays, in turns plain/kernel/kernel/plain, beside K2's bound."""
+    from egomotion_with_local_loop_closures_tpu_torch.depth import stereo
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        stereo_kernel)
+    kern = lambda: stereo_kernel.observe(*args, cfg)  # noqa: E731
+    plain = lambda: stereo.plain_observe(*args, cfg)  # noqa: E731
+    kern()
+    plain()
+    ts = [device_ms(f, reps)[0] for f, reps in
+          ((plain, 10), (kern, 200), (kern, 200), (plain, 10))]
+    k_ms, p_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+    nbytes, ops = k2_work(args, cfg, branches)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    V = args[0].valid[..., 0, 0].numel()
+    print(f"stereo_observe {label} V={V}: device time per call {k_ms:.5f} "
+          f"ms (turns {' '.join(f'{t:.5f}' for t in ts)}), plain observe "
+          f"{p_ms:.5f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {ops} "
+          f"float32 ops: {1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} us), "
+          f"{100 * bound / k_ms:.1f} % of it reached; on {gpu}")
+    return k_ms, p_ms, bound, by
+
+
 def rank_child(argv) -> int:
     """One rank of phase 12: ``chip_smoke.py --rank-child RANK PORT DIR
     DEVICE``.  Joins the two-rank gloo group, runs the pixel-sharded GN
@@ -840,11 +1062,12 @@ def main() -> int:
     import egomotion_with_local_loop_closures_tpu_torch as port
     from egomotion_with_local_loop_closures_tpu_torch.config import (
         ELLCConfig, PARITY_OVERRIDES)
-    from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
+    from egomotion_with_local_loop_closures_tpu_torch.depth import (
+        propagate, state as dstate)
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.ops import (
-        gn_kernel, reg_kernel)
+        gn_kernel, reg_kernel, stereo_kernel)
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, graphs, io as ellc_io, pipeline, runner)
@@ -879,24 +1102,28 @@ def main() -> int:
         print(f"triton does not import: {e}")
     print(f"gpu (name, power limit): {gpu}")
 
-    phase("2 build K3 and K1")
+    phase("2 build K3, K1 and K2")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(2) as pool:
-        lib, lib_k1 = pool.map(lambda m: m.build(), (reg_kernel, gn_kernel))
+    with ThreadPoolExecutor(3) as pool:
+        lib, lib_k1, lib_k2 = pool.map(lambda m: m.build(), (
+            reg_kernel, gn_kernel, stereo_kernel))
     reg_kernel._library()
     gn_kernel._library()
-    print(f"built {os.path.relpath(lib, ROOT)} and "
-          f"{os.path.relpath(lib_k1, ROOT)} in "
+    stereo_kernel._library()
+    print(f"built {os.path.relpath(lib, ROOT)}, "
+          f"{os.path.relpath(lib_k1, ROOT)} and "
+          f"{os.path.relpath(lib_k2, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits"]).splitlines()[0])
     cuobjdump = os.path.join(os.path.dirname(reg_kernel._find_nvcc()),
                              "cuobjdump")
-    k1_sass = sass_counts(lib_k1, cuobjdump)
-    for fn, res in kernel_resources(lib_k1, cuobjdump).items():
-        print(f"{fn}: {res}; {sum(k1_sass[fn])} SASS instructions")
+    for lib_k in (lib_k1, lib_k2):
+        k_sass = sass_counts(lib_k, cuobjdump)
+        for fn, res in kernel_resources(lib_k, cuobjdump).items():
+            print(f"{fn}: {res}; {sum(k_sass[fn])} SASS instructions")
     resources = kernel_resources(lib, cuobjdump)
     cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
     H, W = cfg.shape
@@ -1081,6 +1308,39 @@ def main() -> int:
         [("seeded 270x480", seeded_kf, seeded_cur, seeded_pose, False),
          ("real 270x480", real_kf, real_cur, real_pose, True)], cfg, dev, gpu)
 
+    phase(f"3c K2 against plain PyTorch: V = 1 and {K2_VIDEOS}, seeded and "
+          f"real planes, fresh and evolved states")
+    # seeded: phase 3b's images and phase 3's seeded state; real: phase 3's
+    # keyframe (frame 8) and frame 9 at the pose K1 tracks it to, from no
+    # hypothesis (the create path), from the pipeline's state (the update
+    # path) and from that state with a quarter of its variances near
+    # max_var (a failed update there kills its pixel)
+    def kf_planes(img):
+        gx, gy = pyramid.gradients(img)
+        return img, gx, gy, pyramid.max_abs_gradient(gx, gy)
+    seeded_st, _ = on_card(random_planes(7, cfg.shape))
+    seeded_obs = (*kf_planes(img0), img1, seeded_pose)
+    real_obs = (st.kf.images[0], st.kf.gradx, st.kf.grady, st.kf.maxgrad,
+                torch.as_tensor(frames[8], device=dev), real_pose)
+    quarter = torch.as_tensor(np.random.default_rng(3).uniform(
+        size=cfg.shape) < 0.25, device=dev)
+    stressed = st.depth.replace(var=torch.where(
+        st.depth.valid & quarter, 0.24, st.depth.var))
+    fresh = dstate.empty(cfg.shape, dev)
+    worst_k2, branches_k2, timed_k2 = k2_phase(
+        [("seeded 270x480, seeded state", (seeded_st, *seeded_obs), False),
+         ("seeded 270x480, fresh state", (fresh, *seeded_obs), False),
+         ("real 270x480, fresh state", (fresh, *real_obs), False),
+         ("real 270x480, pipeline state", (st.depth, *real_obs), True),
+         ("real 270x480, pipeline state, variances near max_var",
+          (stressed, *real_obs), False)], cfg, gpu)
+    on_real = {k: sum(c[k] for label, c in branches_k2.items()
+                      if label.startswith("real"))
+               for k in next(iter(branches_k2.values()))}
+    print(f"K2 branches on the real frames, summed: {on_real}")
+    check(all(n > 0 for n in on_real.values()),
+          "the real frames exercise every EKF branch")
+
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
     expect = {"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
@@ -1090,6 +1350,7 @@ def main() -> int:
         torch.cuda.synchronize()
         reg_kernel.reset_launches()
         gn_kernel.reset_launches()
+        stereo_kernel.reset_launches()
         t0 = time.perf_counter()
         res = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
                                   out_dir=out)
@@ -1097,8 +1358,10 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = dict(reg_kernel.launches)
         launches_k1 = {"gn_run_sequence": dict(gn_kernel.launches)}
+        launches_k2 = {"gn_run_sequence": dict(stereo_kernel.launches)}
         warmups = {"gn_run_sequence": dict(reg_kernel.warmup_launches)}
         warmups_k1 = {"gn_run_sequence": dict(gn_kernel.warmup_launches)}
+        warmups_k2 = {"gn_run_sequence": dict(stereo_kernel.warmup_launches)}
         poses_file = ellc_io.read_pose_file(os.path.join(out,
                                                          "poses_orig.txt"))
         matches = ellc_io.read_pose_file(os.path.join(out, "matchframes.txt"))
@@ -1111,6 +1374,13 @@ def main() -> int:
     check(launches == expect, "K3 launch counts match the frame schedule")
     check(launches_k1["gn_run_sequence"] == k1_expected("gn_run_sequence"),
           "K1 launch counts match the frame schedule")
+    print(f"K2 launches {launches_k2['gn_run_sequence']}, expected "
+          f"{k2_expected('gn_run_sequence')} (one a track_refine step); the "
+          f"warm-ups launched {warmups_k2['gn_run_sequence']} more")
+    check(n_track == K2_STEPS["gn_run_sequence"]
+          and launches_k2["gn_run_sequence"]
+          == k2_expected("gn_run_sequence"),
+          "K2 launch counts match the frame schedule")
     check(len(res.frame_ids) == MAIN_FRAMES - 1, "every frame tracked")
     check(len(matches) == n_kf, "one matchframes line per keyframe")
     check(poses_file.shape == (MAIN_FRAMES - 1, 10), "poses_orig.txt shape")
@@ -1178,6 +1448,7 @@ def main() -> int:
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
+    stereo_kernel.reset_launches()
     t0 = time.perf_counter()
     res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]),
                                lc_cfg.replace(do_sim3_refine=True), dev,
@@ -1187,12 +1458,18 @@ def main() -> int:
     wall6 = time.perf_counter() - t0
     launches6 = dict(reg_kernel.launches)
     launches_k1["lc_bootstrap"] = dict(gn_kernel.launches)
+    launches_k2["lc_bootstrap"] = dict(stereo_kernel.launches)
     warmups["lc_bootstrap"] = dict(reg_kernel.warmup_launches)
     warmups_k1["lc_bootstrap"] = dict(gn_kernel.warmup_launches)
+    warmups_k2["lc_bootstrap"] = dict(stereo_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['lc_bootstrap']}, expected "
           f"{k1_expected('lc_bootstrap')}")
     check(launches_k1["lc_bootstrap"] == k1_expected("lc_bootstrap"),
           "K1 launch counts match the LC bootstrap")
+    print(f"K2 launches {launches_k2['lc_bootstrap']}, expected "
+          f"{k2_expected('lc_bootstrap')}")
+    check(launches_k2["lc_bootstrap"] == k2_expected("lc_bootstrap"),
+          "K2 launch counts match the LC bootstrap")
     print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
           f"batch(es), {len(res6.frame_ids)} corrected poses in "
           f"{wall6:.3f} s; phases (s) "
@@ -1250,6 +1527,7 @@ def main() -> int:
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
+    stereo_kernel.reset_launches()
     t0 = time.perf_counter()
     res7 = ellc_lc.run_ellc_lc(iter(lc_frames[:LC_FRAMES]), lc_cfg, dev,
                                stats=stats7)
@@ -1257,12 +1535,18 @@ def main() -> int:
     wall7 = time.perf_counter() - t0
     launches7 = dict(reg_kernel.launches)
     launches_k1["lc_mode"] = dict(gn_kernel.launches)
+    launches_k2["lc_mode"] = dict(stereo_kernel.launches)
     warmups["lc_mode"] = dict(reg_kernel.warmup_launches)
     warmups_k1["lc_mode"] = dict(gn_kernel.warmup_launches)
+    warmups_k2["lc_mode"] = dict(stereo_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['lc_mode']}, expected "
           f"{k1_expected('lc_mode')} (143 tracked and 143 replayed frames)")
     check(launches_k1["lc_mode"] == k1_expected("lc_mode"),
           "K1 launch counts match the LC schedule with replays")
+    print(f"K2 launches {launches_k2['lc_mode']}, expected "
+          f"{k2_expected('lc_mode')} (track_refine steps, replays included)")
+    check(launches_k2["lc_mode"] == k2_expected("lc_mode"),
+          "K2 launch counts match the LC schedule with replays")
     n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
                  == 0)
     print(f"K3 launches {launches7}, expected {expect7}; "
@@ -1296,18 +1580,25 @@ def main() -> int:
     torch.cuda.synchronize()
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
+    stereo_kernel.reset_launches()
     t0 = time.perf_counter()
     res8 = runner.run_sequence(iter(rec_frames), rec_cfg, dev)
     torch.cuda.synchronize()
     wall8 = time.perf_counter() - t0
     launches8 = dict(reg_kernel.launches)
     launches_k1["recovery"] = dict(gn_kernel.launches)
+    launches_k2["recovery"] = dict(stereo_kernel.launches)
     warmups["recovery"] = dict(reg_kernel.warmup_launches)
     warmups_k1["recovery"] = dict(gn_kernel.warmup_launches)
+    warmups_k2["recovery"] = dict(stereo_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['recovery']}, expected "
           f"{k1_expected('recovery')}")
     check(launches_k1["recovery"] == k1_expected("recovery"),
           "K1 launch counts match the recovery schedule")
+    print(f"K2 launches {launches_k2['recovery']}, expected "
+          f"{k2_expected('recovery')}")
+    check(launches_k2["recovery"] == k2_expected("recovery"),
+          "K2 launch counts match the recovery schedule")
     recs = res8.extra["recoveries"]
     pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
     g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
@@ -1383,12 +1674,15 @@ def main() -> int:
         if V == BATCH_VIDEOS:
             reg_kernel.reset_launches()
             gn_kernel.reset_launches()
+            stereo_kernel.reset_launches()
         states9, outs9, wall9, peak9 = batched_run(V)
         if V == BATCH_VIDEOS:
             launches9 = dict(reg_kernel.launches)
             launches_k1["batched_videos"] = dict(gn_kernel.launches)
+            launches_k2["batched_videos"] = dict(stereo_kernel.launches)
             warmups["batched_videos"] = dict(reg_kernel.warmup_launches)
             warmups_k1["batched_videos"] = dict(gn_kernel.warmup_launches)
+            warmups_k2["batched_videos"] = dict(stereo_kernel.warmup_launches)
         pred = predicted[V].peak_bytes
         pools = {r["pool"]: r["pool_bytes"] for r in graphs.stats()
                  if r["lead"] == (V,)}
@@ -1413,6 +1707,11 @@ def main() -> int:
           f"{BATCH_VIDEOS} videos)")
     check(launches_k1["batched_videos"] == k1_expected("batched_videos"),
           "the videos share each K1 launch")
+    print(f"K2 launches {launches_k2['batched_videos']}, expected "
+          f"{k2_expected('batched_videos')} (one video's count for "
+          f"{BATCH_VIDEOS} videos)")
+    check(launches_k2["batched_videos"] == k2_expected("batched_videos"),
+          "the videos share each K2 launch")
     poses9 = torch.cat([o.pose_wrt_world for o in outs9], 1).cpu().numpy()
     seeds9 = torch.cat([o.seeds for o in outs9], 1).cpu().numpy()
     check(poses9.shape == (BATCH_VIDEOS, n_per - 1, 6), "batched outputs")
@@ -1500,10 +1799,12 @@ def main() -> int:
         # the CLI in its own process; the wrapper resets K3's counts just
         # before cli.main and prints them just after
         code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-                f"from {PKG}.ops import gn_kernel, reg_kernel; "
+                f"from {PKG}.ops import gn_kernel, reg_kernel, "
+                f"stereo_kernel; "
                 f"from {PKG}.runtime import cli; "
                 f"reg_kernel.reset_launches(); "
                 f"gn_kernel.reset_launches(); "
+                f"stereo_kernel.reset_launches(); "
                 f"rc = cli.main(sys.argv[1:]); "
                 f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
                 f"print('K3 warm-up launches ' + "
@@ -1511,6 +1812,9 @@ def main() -> int:
                 f"print('K1 launches ' + json.dumps(gn_kernel.launches)); "
                 f"print('K1 warm-up launches ' + "
                 f"json.dumps(gn_kernel.warmup_launches)); "
+                f"print('K2 launches ' + json.dumps(stereo_kernel.launches)); "
+                f"print('K2 warm-up launches ' + "
+                f"json.dumps(stereo_kernel.warmup_launches)); "
                 f"sys.exit(rc)")
         argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
                 str(syn_cfg.rows), "--cols", str(syn_cfg.cols),
@@ -1530,6 +1834,10 @@ def main() -> int:
             r"K1 launches (\{.*\})", proc.stdout).group(1))
         warmups_k1["synthetic"] = json.loads(re.search(
             r"K1 warm-up launches (\{.*\})", proc.stdout).group(1))
+        launches_k2["synthetic"] = json.loads(re.search(
+            r"K2 launches (\{.*\})", proc.stdout).group(1))
+        warmups_k2["synthetic"] = json.loads(re.search(
+            r"K2 warm-up launches (\{.*\})", proc.stdout).group(1))
         gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
         orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
     ids10 = orig10[:, 0].astype(int)
@@ -1551,6 +1859,10 @@ def main() -> int:
           and launches_k1["synthetic"] == k1_expected("synthetic"),
           f"K1 launch counts {launches_k1['synthetic']} match the synthetic "
           f"schedule's {k1_expected('synthetic')}")
+    check(n_track == K2_STEPS["synthetic"]
+          and launches_k2["synthetic"] == k2_expected("synthetic"),
+          f"K2 launch counts {launches_k2['synthetic']} match the synthetic "
+          f"schedule's {k2_expected('synthetic')}")
     check(ids10.tolist() == syn_golden["frame_ids"], "synthetic frame ids")
     check(bool(np.isfinite(orig10).all()), "synthetic poses finite")
     check(d_gt <= TRAJ_TOL, "poses_gt.txt matches the JAX trajectory")
@@ -1768,15 +2080,20 @@ def main() -> int:
             rot = None if rots is None else rots[k]
             reg_kernel.reset_launches()
             gn_kernel.reset_launches()
+            stereo_kernel.reset_launches()
             g, og = pipeline.track_refine_step(g, imgs[k], c, replay, rot)
-            n_g = (dict(reg_kernel.launches), dict(gn_kernel.launches))
+            n_g = (dict(reg_kernel.launches), dict(gn_kernel.launches),
+                   dict(stereo_kernel.launches))
             reg_kernel.reset_launches()
             gn_kernel.reset_launches()
+            stereo_kernel.reset_launches()
             e, oe = pipeline._track_refine_step(e, imgs[k], c, replay, rot)
-            n_e = (dict(reg_kernel.launches), dict(gn_kernel.launches))
+            n_e = (dict(reg_kernel.launches), dict(gn_kernel.launches),
+                   dict(stereo_kernel.launches))
             torch.cuda.synchronize()
-            check(n_g == n_e, f"{label}: K3 and K1 launches of a replay "
-                  f"{n_g} equal the eager step's {n_e}")
+            check(n_g == n_e and n_e[2] == {"stereo_observe": 1},
+                  f"{label}: K3, K1 and K2 launches of a replay {n_g} equal "
+                  f"the eager step's {n_e}, one K2 launch")
             d = leaf_diffs((g, og), (e, oe))
             check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
                   f"graphed equals eager bit for bit (max |diff| "
@@ -1851,7 +2168,8 @@ def main() -> int:
               f"(the eager GN frame before K1: 24,475 launches, "
               f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
               f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
-              f"(warm-up {r['warmup_k1']}); capture "
+              f"(warm-up {r['warmup_k1']}), K2 nodes {r['k2']} (warm-up "
+              f"{r['warmup_k2']}); capture "
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
@@ -1939,7 +2257,29 @@ def main() -> int:
              "plain_iteration_ms": t["plain_iteration"]}
              for (lv, V), t in sorted(timed_k1.items())}}
         for name in ("gn_linearize", "gn_finish")]
-    print(json.dumps({"kernels": k3_rows + k1_rows}))
+    # K2: the real frames from the pipeline's state, one video; eight
+    # videos under "videos"
+    k2_rows = [
+        {"name": "stereo_kernel.observe", "route": "cuda",
+         "source": os.path.join(PKG, "csrc", "stereo_kernel.cu"),
+         "replaces": "egomotion_with_local_loop_closures_tpu/depth/"
+                     "stereo.py:674",
+         "launches": launches_k2["gn_run_sequence"]["stereo_observe"],
+         "launches_by_path": {k: v["stereo_observe"]
+                              for k, v in launches_k2.items()},
+         "warmup_launches_by_path": {k: v["stereo_observe"]
+                                     for k, v in warmups_k2.items()},
+         "max_abs_err": worst_k2[1],
+         "max_abs_err_of": "max |float plane diff| over every pixel",
+         "not_bit_equal_px": worst_k2[0],
+         "ms": timed_k2[1][0], "plain_ms": timed_k2[1][1],
+         "bound_ms": timed_k2[1][2], "bound_by": timed_k2[1][3],
+         "library_ms": None,
+         "videos": {"V": K2_VIDEOS, "ms": timed_k2[K2_VIDEOS][0],
+                    "plain_ms": timed_k2[K2_VIDEOS][1],
+                    "bound_ms": timed_k2[K2_VIDEOS][2],
+                    "bound_by": timed_k2[K2_VIDEOS][3]}}]
+    print(json.dumps({"kernels": k3_rows + k1_rows + k2_rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,16 +34,30 @@ def vee_so3(W: torch.Tensor) -> torch.Tensor:
     return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
+def _norm2(w: torch.Tensor) -> torch.Tensor:
+    """|w|^2 of (..., 3) as (w0 w0 + w1 w1) + w2 w2."""
+    return ((w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1])
+            + w[..., 2] * w[..., 2])
+
+
+def _over(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as a true division on every device (ATen's CUDA division by a
+    Python scalar multiplies by the float32 reciprocal instead)."""
+    return x / torch.full_like(x, c)
+
+
 def _sinc_coeffs(theta2: torch.Tensor):
     """(A, B, C) = (sin t / t, (1-cos t)/t^2, (t - sin t)/t^3), with
     Taylor fallbacks near zero."""
     small = theta2 < _THETA2_SMALL
     t2s = torch.where(small, 1.0, theta2)
     ts = torch.sqrt(t2s)
-    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(ts) / ts)
-    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(ts)) / t2s)
-    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (ts - torch.sin(ts)) / (t2s * ts))
+    s = torch.sin(ts)
+    A = torch.where(small, 1.0 - _over(theta2, 6.0), s / ts)
+    B = torch.where(small, 0.5 - _over(theta2, 24.0),
+                    (1.0 - torch.cos(ts)) / t2s)
+    C = torch.where(small, 1.0 / 6.0 - _over(theta2, 120.0),
+                    (ts - s) / (t2s * ts))
     return A, B, C
 
 
@@ -52,16 +66,17 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` for small matrices over broadcast leading dimensions,
-    always as one batched product (``torch.bmm``), also for a single pair.
-    PyTorch multiplies the small matrices of a batch on the CPU in one
-    fixed loop, so each pose of a stack (the videos of the batched
-    pipeline) gets the bits it gets alone; a 2-D ``mm`` would go to BLAS,
-    whose bits differ."""
-    if a.dim() == 2 and b.dim() == 2:
-        return torch.bmm(a[None], b[None])[0]
-    # with leading dimensions, matmul multiplies by bmm
-    return a @ b
+    """``a @ b`` for small matrices over broadcast leading dimensions, entry
+    by entry: (a_i0 b_0j + a_i1 b_1j) + ... in order of the inner index.
+    Each pose of a stack (the videos of the batched pipeline) gets the bits
+    it gets alone, and on the card these are the bits of the hand-written
+    kernels' products (``csrc/ellc_device.cuh``), which a cuBLAS product,
+    rounding with fused multiply-adds, would not give.  On the CPU they are
+    also ``torch.bmm``'s."""
+    out = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k, None] * b[..., None, k, :]
+    return out
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -70,7 +85,7 @@ def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
     """SO(3) exponential: (..., 3) -> (..., 3, 3).  R = I + A [w]x + B [w]x^2."""
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     A, B, _ = _sinc_coeffs(theta2)
     W = hat_so3(w)
     W2 = mm(W, W)
@@ -86,7 +101,7 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     """SE(3) exponential of a twist (..., 6) -> (..., 4, 4):
     R = exp([w]x), t = V v with V = I + B [w]x + C [w]x^2."""
     w, v = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     A, B, C = _sinc_coeffs(theta2)
     W = hat_so3(w)
     W2 = mm(W, W)
@@ -106,11 +121,11 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     w = log_so3(R)
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     A, B, _ = _sinc_coeffs(theta2)
     small = theta2 < _THETA2_SMALL
     t2s = torch.where(small, 1.0, theta2)
-    D = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+    D = torch.where(small, 1.0 / 12.0 + _over(theta2, 720.0),
                     (1.0 - A / (2.0 * B)) / t2s)
     W = hat_so3(w)
     W2 = mm(W, W)

@@ -2,11 +2,14 @@
 
 - ``reg_kernel``: K3, the depth-map regularization (``csrc/reg_kernel.cu``);
 - ``gn_kernel``: K1, one Gauss-Newton iteration of the tracker as two
-  kernels (``csrc/gn_kernel.cu``).
+  kernels (``csrc/gn_kernel.cu``);
+- ``stereo_kernel``: K2, the epipolar line stereo and EKF observation of
+  one frame (``csrc/stereo_kernel.cu``).
 
-Each source is compiled with ``nvcc`` on first use, from this checkout,
-into ``build/`` (one shared library per hash of source and flags, loaded
-with ``ctypes``): :func:`build`.
+K1 and K2 share their device helpers, ``csrc/ellc_device.cuh``.  Each
+source is compiled with ``nvcc`` on first use, from this checkout, into
+``build/`` (one shared library per hash of the source, the headers of
+``csrc/`` and the flags, loaded with ``ctypes``): :func:`build`.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ def find_nvcc() -> str:
 
 def build(source: Path, stem: str) -> Path:
     """Compile ``source`` into ``build/lib<stem>_<hash>.so`` unless a
-    library of this exact source and flag set is already built; returns
-    the library's path."""
-    digest = hashlib.sha256(source.read_bytes()
+    library of this exact source, headers (every ``csrc/*.cuh``) and flag
+    set is already built; returns the library's path."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{stem}_{digest}.so"
     if lib.exists():

@@ -35,11 +35,12 @@ step's bits, up to the float atomics of ``propagate``'s ``index_add_`` in
 the keyframe step, which differ between two eager runs too.
 
 The launch counts of the port's hand-written kernels, K3
-(``ops/reg_kernel.launches``) and K1 (``ops/gn_kernel.launches``): the
-warm-up's launches are counted apart (each module's ``warmup_launches``),
-and the capture's wrapper calls, which launch nothing, are counted only
-to check the graph: its K3 and K1 kernel nodes, found by their functions'
-names, must be as many, wrapper by wrapper.  Each replay adds those nodes
+(``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``) and K2
+(``ops/stereo_kernel.launches``): the warm-up's launches are counted
+apart (each module's ``warmup_launches``), and the capture's wrapper
+calls, which launch nothing, are counted only to check the graph: its
+K3, K1 and K2 kernel nodes, found by their functions' names, must be as
+many, wrapper by wrapper.  Each replay adds those nodes
 to ``launches``, so the counts are the launches of the replays, as on the
 eager path.
 
@@ -57,12 +58,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from egomotion_with_local_loop_closures_tpu_torch.ops import (gn_kernel,
-                                                            reg_kernel)
+from egomotion_with_local_loop_closures_tpu_torch.ops import (
+    gn_kernel, reg_kernel, stereo_kernel)
 
 # the modules of the hand-written kernels whose launches a graph counts,
-# by the name of the kernel: K3 and K1
-_KERNELS = {"k3": reg_kernel, "k1": gn_kernel}
+# by the name of the kernel: K3, K1 and K2
+_KERNELS = {"k3": reg_kernel, "k1": gn_kernel, "k2": stereo_kernel}
 
 # CUgraphNodeType values of libcuda's graph API
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
@@ -126,7 +127,7 @@ class Graph:
     out_spec: Any
     # output leaf -> input leaf, for outputs that are static inputs
     through: Dict[int, int]
-    # per kernel ("k3", "k1"): its nodes by wrapper, so the launches of
+    # per kernel ("k3", "k1", "k2"): its nodes by wrapper, so the launches of
     # one replay, and the launches of the eager warm-up
     kernel_nodes: Dict[str, Dict[str, int]]
     warmup: Dict[str, Dict[str, int]]
@@ -152,8 +153,8 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
                  ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     """The nodes of a captured (not yet instantiated) graph by type, from
     ``raw_cuda_graph()`` and libcuda's cuGraphGetNodes (the runtime's
-    cudaGraphGetNodes), and its K3 and K1 kernel nodes by wrapper
-    (``{"k3": {...}, "k1": {...}}``), from each kernel node's function
+    cudaGraphGetNodes), and its K3, K1 and K2 kernel nodes by wrapper
+    (``{"k3": {...}, "k1": {...}, "k2": {...}}``), from each kernel node's function
     (cuGraphKernelNodeGetParams) and its name (cuFuncGetName, or
     cuKernelGetName for a library kernel)."""
     cuda = ctypes.CDLL("libcuda.so.1")
@@ -331,7 +332,7 @@ def pool_bytes(pool: Tuple[int, int]) -> int:
 def stats() -> List[dict]:
     """One line per captured graph: the step, its key's config, replay,
     rotation and video axis, capture and instantiate seconds, nodes by
-    type, K3 and K1 launches a replay and of the warm-up, and the pool's
+    type, K3, K1 and K2 launches a replay and of the warm-up, and the pool's
     bytes."""
     rows = []
     for key, g in _graphs.items():

@@ -6,7 +6,7 @@ under the parity config.
   against its single-video call on each slice.  Tolerance 0: bit for bit.
   The gathers and elementwise ops are equal by construction.  The GN
   system of ``align`` is one (6, N) x (N, 7) product per video, and the
-  small Lie-group products are batched products even for one pose
+  small Lie-group products are sums of elementwise products
   (``geom.lie.mm``).  So on one CPU thread every video gets the bits it
   gets alone.  This held on every case tried.
 - (b) ``batched_init`` against ``init_pipeline`` video by video, bit for
@@ -51,8 +51,8 @@ from egomotion_with_local_loop_closures_tpu_torch.depth import (
     fusion, propagate, state as dstate, stereo)
 from egomotion_with_local_loop_closures_tpu_torch.image import (interp,
                                                                 pyramid)
-from egomotion_with_local_loop_closures_tpu_torch.ops import (gn_kernel,
-                                                            reg_kernel)
+from egomotion_with_local_loop_closures_tpu_torch.ops import (
+    gn_kernel, reg_kernel, stereo_kernel)
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     checkpoint, pipeline)
@@ -470,15 +470,18 @@ def test_cuda_batched_interval_matches_single_video(cuda_device,
     """A batched interval on the card against each video's single-video
     interval on the card: the card's batched reductions may sum in another
     order, so the JAX package's vmap tolerance (2e-3) and 1 seeds% point;
-    K3 launched once per call for all videos, and K1 once per GN iteration
-    for all videos (32 iterations a frame)."""
+    K3 launched once per call for all videos, K1 once per GN iteration
+    for all videos (32 iterations a frame) and K2 once per track_refine
+    step for all videos."""
     states = convert.to_port(jax_init_tree, cuda_device)
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
+    stereo_kernel.reset_launches()
     _, outs = sharded.batched_process_interval(states, videos[:, 1:8], CFG)
     assert reg_kernel.launches == {"do_regularization": 8, "regularize": 1}
     n_gn = 7 * sum(CFG.max_iters)
     assert gn_kernel.launches == {"gn_linearize": n_gn, "gn_finish": n_gn}
+    assert stereo_kernel.launches == {"stereo_observe": 6}
     for v, st in enumerate(sharded.unstack_states(states)):
         _, o, _ = pipeline.process_interval(st, list(videos[v, 1:8]), CFG)
         d_pose = float((o.pose_wrt_world - outs.pose_wrt_world[v]).abs()

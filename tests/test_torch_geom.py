@@ -76,6 +76,23 @@ def test_compose_and_relative_match_jax(name):
           atol=2e-5)
 
 
+@pytest.mark.parametrize("a_shape,b_shape", [
+    ((3, 3), (3, 3)), ((8, 3, 3), (8, 3, 3)), ((3, 3), (8, 3, 3)),
+    ((8, 3, 3), (8, 3, 1)), ((4, 4), (4, 4)), ((8, 4, 4), (8, 4, 4))])
+def test_mm_equals_bmm_bit_for_bit_on_cpu(a_shape, b_shape):
+    """``lie.mm`` sums entry by entry (the kernels' order); on the CPU
+    that is also ``torch.bmm``'s, so moving off it changed no CPU bit."""
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.normal(size=a_shape).astype(np.float32))
+    b = torch.tensor(rng.normal(size=b_shape).astype(np.float32))
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+
+    def stack(m):
+        return m.expand(lead + m.shape[-2:]).reshape((-1,) + m.shape[-2:])
+    want = torch.bmm(stack(a), stack(b))
+    assert torch.equal(lie.mm(a, b), want.reshape(lead + want.shape[-2:]))
+
+
 def test_inverse_is_negation_and_round_trips():
     xi = torch.as_tensor(twists(5))
     assert torch.equal(lie.inverse(xi), -xi)

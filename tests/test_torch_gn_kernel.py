@@ -12,8 +12,9 @@ variance; video v of a batch has its own keyframe pose, holes and motion.
   and ``align`` (1e-5 per twist component).
 - The wrappers on CPU tensors run the plain version and launch nothing;
   the module imports without nvcc; the source holds no atomics.
-- The CUDA source built for the CPU with g++ (a ``std::thread`` per CUDA
-  thread, as tests/test_torch_reg_kernel_emulated.py builds K3): K1a's
+- The CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``:
+  a ``std::thread`` per CUDA thread, as tests/test_torch_reg_kernel_emulated.py
+  builds K3): K1a's
   sums against the plain linearization (H within 1e-4 of its largest
   entry, g_i within 1e-4 sqrt(H_ii E), the energy within 1e-4 relative,
   the used count exact: float32 sums of ~10^4 terms in another order),
@@ -30,9 +31,8 @@ variance; video v of a batch has its own keyframe pose, holes and motion.
 import ctypes
 import math
 import re
-import shutil
-import subprocess
 
+import cuda_emulation
 import numpy as np
 import pytest
 import torch
@@ -256,70 +256,12 @@ def test_cpu_tensors_take_the_plain_path(videos):
 
 # --- the CUDA source built for the CPU ---
 
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <thread>
-#include <vector>
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
-};
-struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx, blockIdx;
-inline std::barrier<>* g_bar;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __shared__ static
-#define __restrict__ __restrict
-#define __launch_bounds__(x)
-typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
-template <class F, class A>
-void emu_launch(F f, dim3 grid, dim3 block, const A& a) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(block.x);
-      g_bar = &bar;
-      std::vector<std::thread> ts;
-      for (unsigned tx = 0; tx < block.x; ++tx)
-        ts.emplace_back([&, tx] {
-          blockIdx = {bx, by, 0};
-          threadIdx = {tx, 0, 0};
-          f(a);
-        });
-      for (auto& t : ts) t.join();
-    }
-}
-"""
-LAUNCH = re.compile(r"(\w+)<<<(.+?), (dim3\(\w+\)), 0, stream_>>>\((\w+)\);")
-
-
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """K1's library built for the CPU, and its two kernels as ``lin`` and
     ``fin`` functions of ``gn_kernel.iterate``'s signature."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the CPU emulation of the kernels")
-    src, n = LAUNCH.subn(r"emu_launch(\1, \2, \3, \4);",
-                        gn_kernel.SOURCE.read_text())
-    assert n == 2, "two kernel launches in the source"
-    d = tmp_path_factory.mktemp("gn_kernel_cpu")
-    (d / "cuda_shim.h").write_text(SHIM)
-    (d / "gn_kernel.cpp").write_text(
-        src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"'))
-    lib = d / "libgn_kernel_cpu.so"
-    subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-w", "-o", str(lib),
-                    str(d / "gn_kernel.cpp")], check=True)
-    lib = gn_kernel.bind(ctypes.CDLL(str(lib)))
+    lib = gn_kernel.bind(ctypes.CDLL(str(cuda_emulation.build_for_cpu(
+        gn_kernel.SOURCE, tmp_path_factory.mktemp("gn_kernel_cpu"), 2))))
 
     def lin(kf, cur, pose, intr, cfg, y_offset=0, done=None):
         return gn_kernel._launch_linearize(lib, kf, cur, pose, intr, cfg,

@@ -51,8 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from egomotion_with_local_loop_closures_tpu_torch.config import (
     PARITY_OVERRIDES, TEST_CONFIG)
 from egomotion_with_local_loop_closures_tpu_torch.geom import linear
-from egomotion_with_local_loop_closures_tpu_torch.ops import (gn_kernel,
-                                                            reg_kernel)
+from egomotion_with_local_loop_closures_tpu_torch.ops import (
+    gn_kernel, reg_kernel, stereo_kernel)
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     graphs, io as ellc_io, pipeline, runner)
@@ -315,15 +315,20 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
     for _ in range(3):
         reg_kernel.reset_launches()
         gn_kernel.reset_launches()
+        stereo_kernel.reset_launches()
         eager, out_e = pipeline._track_refine_step(eager, image, cfg,
                                                    replay, rot)
-        counts = (dict(reg_kernel.launches), dict(gn_kernel.launches))
+        counts = (dict(reg_kernel.launches), dict(gn_kernel.launches),
+                  dict(stereo_kernel.launches))
         assert counts[1] == {"gn_linearize": n_iters, "gn_finish": n_iters}
+        assert counts[2] == {"stereo_observe": 1}
         reg_kernel.reset_launches()
         gn_kernel.reset_launches()
+        stereo_kernel.reset_launches()
         graphed, out_g = pipeline.track_refine_step(graphed, image, cfg,
                                                     replay, rot)
-        assert (reg_kernel.launches, gn_kernel.launches) == counts
+        assert (reg_kernel.launches, gn_kernel.launches,
+                stereo_kernel.launches) == counts
         _assert_bits((graphed, out_g), (eager, out_e))
     kf_e = pipeline._keyframe_step(eager, image, cfg, replay, rot)
     kf_g = pipeline.keyframe_step(graphed, image, cfg, replay, rot)
