@@ -8,10 +8,10 @@ Phases, each announced on its own line:
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: compiles the K3 kernel (csrc/reg_kernel.cu), the two K1
-   kernels (csrc/gn_kernel.cu) and the K2 kernel (csrc/stereo_kernel.cu)
-   from this checkout, one nvcc each, started together, and prints each
-   kernel's registers, stack and shared memory and its static SASS
-   instruction count (cuobjdump);
+   kernels (csrc/gn_kernel.cu: gn_level_cluster and gn_step) and the K2
+   kernel (csrc/stereo_kernel.cu) from this checkout, one nvcc each,
+   started together, and prints each kernel's registers, stack and shared
+   memory and its static SASS instruction count (cuobjdump);
 3. K3 against its plain PyTorch version on the card, bit for bit (NaN
    equal to NaN), on a numpy-seeded state with holes and on a real state
    from the pipeline at 480x270, and on states whose border pixels are
@@ -29,17 +29,29 @@ Phases, each announced on its own line:
 3b. K1 against its plain PyTorch version on the card, at every level of
    the pyramid, for one video and for eight in one call, on numpy-seeded
    planes and on phase 3's real keyframe and the next frame of run_gn:
-   K1a's sums (H within 1e-4 of its largest entry, g_i within 1e-4 of
-   sqrt(H_ii E), the energy within 1e-4 relative, or else nearer the
-   plain version's float64 sums than the plain float32 ones are; the used
-   count exact) against the plain linearization, each side's distance
-   from float64 printed; K1b on the plain H, g and pose (the
-   pose within 1e-5 a component, iters and freeze flags equal), from a
-   fresh level and from a state with some videos frozen; each video of an
-   eight-video call bit-equal to its own call (K1a's partials and a whole
-   level); then each kernel's time per launch from CUDA-graph replays, in
-   turns with the plain linearization, update and iteration, beside its
-   bound;
+   gn_step's linearization alone (H within 1e-4 of its largest entry,
+   g_i within 1e-4 of sqrt(H_ii E), the energy within 1e-4 relative, or
+   else nearer the plain version's float64 sums than the plain float32
+   ones are; the used count exact) against the plain linearization, each
+   side's distance from float64 printed; gn_step's finish alone on the
+   plain H, g and pose (the pose within 1e-5 a component, iters and
+   freeze flags equal), from a fresh level and from a state with some
+   videos frozen; a whole level of each kernel, gn_level_cluster and
+   gn_step, against the plain level and its float64 run
+   (ops/gn_reference.py::level_agreement: the plain stop and freeze
+   flag, or one iteration apart where the plain metric lies within the
+   level's measured float32 spread of 1; after as many plain iterations
+   as the kernel used, the used count equal and the pose within 1e-5 a
+   component, the energy and the metric within their measured
+   tolerances, each or nearer float64 than twice the plain value's
+   distance from it); each video of
+   an eight-video call bit-equal to its own call (the partials and a
+   whole level of each kernel) and a repeated call bit-equal to the
+   first; then the time per launch of the two single modes from
+   CUDA-graph replays, in turns with the plain linearization, update and
+   iteration, beside its bound, and each level's iterations and one
+   whole align as one graph, of either kernel and of the plain version,
+   in turns, beside their bounds (tools/time_k1_levels.py);
 3c. K2 against its plain PyTorch version (depth/stereo.py::plain_observe)
    on the card, for one video and for eight in one call (video b: the
    planes rolled by (b, 2b) pixels, the pose moved by 2e-4 b): numpy-seeded
@@ -56,8 +68,9 @@ Phases, each announced on its own line:
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's, K1's
    and K2's launch counts must equal what the frame schedule implies (K1:
-   two launches a GN iteration, 32 iterations a tracked frame; K2: one a
-   track_refine step), every pose must be
+   a tracked frame's align one gn_level_cluster launch at each of levels
+   2-3 and a gn_step launch an iteration at levels 0-1, 2 + 11; K2: one
+   a track_refine step), every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
@@ -139,7 +152,8 @@ Phases, each announced on its own line:
 12. two ranks on the card: two processes on cuda:0 joined by
    parallel.mesh.initialize_multihost over gloo (NCCL refuses two ranks
    on one card): sharded_gn_quantities at level 0 of a real 270x480
-   keyframe and frame, one K1a launch a rank, against the single-process
+   keyframe and frame, one gn_step launch (its linearization alone) a
+   rank, against the single-process
    plain _gn_quantities (H within
    1e-4 of its largest entry, g_i of sqrt(H_ii E)), and refine_sharded on
    phase 6's golden Sim(3) graph against refine (within 1e-5);
@@ -280,45 +294,41 @@ SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
 # 1 ulp in some rounds, 0 in others), in each of KF_ROUNDS rounds
 KF_RUNS, KF_ROUNDS, KF_ROOM, KF_ULPS = 8, 3, 2.0, 4
 
-# K1 (ops/gn_kernel.py): one launch of each of its two kernels a GN
-# iteration.  A tracked frame runs sum(max_iters) = 4 + 7 + 9 + 12 = 32
-# iterations, a replayed frame sum(max_iters_replay) = 5 + 1 + 1 + 1 = 8;
-# connection recovery's trials and the LC rematch run the constant-weight
-# aligner, no K1.  Frame steps (track_refine and keyframe, each one align)
-# per path, from the schedules counted for K3 above, and replayed steps:
+# K1 (ops/gn_kernel.py) in one align at 480x270: levels 2 and 3 (67x120
+# and 33x60: 8,040 and 1,980 pixels, each at most
+# gn_kernel.CLUSTER_MAX_PIXELS) run one gn_level_cluster launch each,
+# levels 0 and 1 (270x480 and 135x240: 129,600 and 32,400 pixels) one
+# gn_step launch an iteration: a tracked frame (max_iters 4, 7, 9, 12)
+# 2 + 4 + 7 launches, a replayed frame (max_iters_replay 5, 1, 1, 1)
+# 2 + 5 + 1.  Connection recovery's trials and
+# the LC rematch run the constant-weight aligner, no K1.  Frame steps
+# (track_refine and keyframe, each one align) per path, from the
+# schedules counted for K3 above, and replayed steps:
 # phase 4 every tracked frame, 128; phase 6 69 + 10 = 79; phase 7 the
 # bootstrap batch's 79 and two batches of 28 + 4, 143, each batch replayed
 # once; phase 8 39 + 6 = 45 (frames 41 and 42 are recovery trials, no
 # step); phase 9 27 + 4 = 31, one video's count whatever V; phase 10
 # 56 + 8 = 64.
-K1_ITERS, K1_REPLAY_ITERS = 32, 8
+K1_ALIGN = {"gn_level_cluster": 2, "gn_step": 4 + 7}
+K1_REPLAY_ALIGN = {"gn_level_cluster": 2, "gn_step": 5 + 1}
 K1_STEPS = {"gn_run_sequence": (MAIN_FRAMES - 1, 0), "lc_bootstrap": (79, 0),
             "lc_mode": (143, 143), "recovery": (45, 0),
             "batched_videos": (31, 0),
             "synthetic": (SYNTHETIC_FRAMES - 1, 0)}
-# Phase 3b: K1a's H within K1_SUM_TOL of its largest entry, g_i of
-# sqrt(H_ii E), the energy relative (float32 sums of up to 1.3e5 terms in
-# another order than the plain version's); K1b's pose within K1_POSE_TOL a
-# component on the same system; eight videos in one call
+# Phase 3b: the linearization's H within K1_SUM_TOL of its largest entry,
+# g_i of sqrt(H_ii E), the energy relative (float32 sums of up to 1.3e5
+# terms in another order than the plain version's); the finish's pose
+# within K1_POSE_TOL a component on the same system, and a whole level's
+# within it or nearer float64 than twice the plain level's distance; eight
+# videos in one call
 K1_SUM_TOL, K1_POSE_TOL, K1_VIDEOS = 1e-4, 1e-5, 8
-# K1a's float32 operations a template pixel, counted by hand from
-# csrc/gn_kernel.cu (each add, sub, mul, div, sqrt, abs, floor, ceil, min,
-# max and float compare one): backprojection 6, R P + t 18, UNZERO 2,
-# projection 6, bilinear corners 14, three blends 36, u, v, 1/d and the
-# residual 4, the variance and Huber weight 27, the steepest-descent rows
-# 37, the 29 products 41 and the block's tree sum 29
-K1A_OPS_PER_PIXEL = 220
-# K1b's serial operations a video (Cholesky and substitutions 184, two
-# exp_se3 240, the product 63, log_se3 140, the termination metric 12);
-# its partial sums add one a partial
-K1B_OPS_PER_VIDEO = 640
 
 
 def k1_expected(path):
     """K1's launches on a driven path, by the hand count above."""
     steps, replayed = K1_STEPS[path]
-    n = K1_ITERS * steps + K1_REPLAY_ITERS * replayed
-    return {"gn_linearize": n, "gn_finish": n}
+    return {k: K1_ALIGN[k] * steps + K1_REPLAY_ALIGN[k] * replayed
+            for k in K1_ALIGN}
 
 
 # K2 (ops/stereo_kernel.py): one launch a track_refine step (each runs
@@ -356,9 +366,6 @@ def k2_expected(path):
     return {"stereo_observe": K2_STEPS[path]}
 
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
-# FLOP/s outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # seeds% within 2 points, not 1: frame 17 is the first stereo pass against
 # keyframe 16 with a one-frame baseline, where the epipolar gates hang on
 # the last bits of the pose (measured 1.05 points on a one-thread CPU run,
@@ -458,12 +465,12 @@ def compare(ref, got, fields):
 
 
 def kernel_label(mangled):
-    """reg_kernel<kFill, kOccl>, gn_linearize, gn_finish or stereo_observe
-    from a mangled kernel name."""
+    """reg_kernel<kFill, kOccl>, gn_level_cluster, gn_step or
+    stereo_observe from a mangled kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
     if m:
         return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
-    m = re.search(r"\d+(gn_linearize|gn_finish|stereo_observe)E", mangled)
+    m = re.search(r"\d+(gn_level_cluster|gn_step|stereo_observe)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -556,32 +563,6 @@ def call_ms(fn, reps=30):
     return statistics.median(times)
 
 
-def device_ms(fn, reps):
-    """The card's time per call: ``fn`` is captured once in a CUDA graph (a
-    thousand launches of the plain version would fill the launch queue),
-    a spin kernel holds the stream while the host queues ``reps`` replays,
-    and CUDA events time the replays.  Returns (ms per call, whether the
-    host's queueing stayed ahead of the card)."""
-    import torch
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    torch.cuda._sleep(200_000_000)            # ~0.1 s at H100 clocks
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        graph.replay()
-    ev[2].record()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    ev[2].synchronize()
-    return ev[1].elapsed_time(ev[2]) / reps, host_ms < ev[0].elapsed_time(
-        ev[1])
-
-
 def load_tool(name):
     """A module of this checkout's tools/ directory."""
     import importlib.util
@@ -610,49 +591,23 @@ def golden_sim3_graph(lc_golden, cfg, dev):
                                       loop_edges=loops, device=dev)
 
 
-def gn_planes(seed, shape):
-    """A numpy-seeded GN pair: a keyframe (a smooth texture of integer
-    grey levels, a smooth depth with 20 % holes, a variance) and a
-    current image, the texture moved by (2.6, 1.3) pixels with noise."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    H, W = shape
-    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
-    freq = rng.uniform(0.02, 0.25, size=(16, 2))
-    phase_ = rng.uniform(0.0, 2 * np.pi, size=16)
-    amp = rng.uniform(4.0, 12.0, size=16)
-
-    def texture(dx, dy):
-        return 128.0 + sum(amp[k] * np.sin(freq[k, 0] * (x - dx)
-                                           + freq[k, 1] * (y - dy)
-                                           + phase_[k]) for k in range(16))
-    f32 = np.float32
-    img0 = np.clip(np.round(texture(0.0, 0.0)), 0, 255).astype(f32)
-    img1 = np.clip(np.round(texture(2.6, 1.3)
-                            + rng.normal(0.0, 2.0, shape)), 0, 255).astype(f32)
-    hole = rng.uniform(size=shape) < 0.2
-    depth = np.where(hole, 0.0, 1.5 + 0.5 * np.sin(x / 70.0)
-                     * np.cos(y / 50.0)).astype(f32)
-    var = np.where(hole, -1.0, 0.0005 + 0.002 * rng.uniform(size=shape)
-                   ).astype(f32)
-    return img0, depth, var, img1
-
-
 def k1_phase(cases, cfg, dev, gpu):
     """Phase 3b: K1 against its plain version on ``cases``, each (label,
     keyframe levels, current levels, pose, timed), at every level, for one
     video and for K1_VIDEOS (video b: the planes rolled by (b, 2b) pixels,
     the pose moved by 2e-4 b in each component).  Returns the worst
-    errors, {"gn_linearize": max of the normalized H and g errors,
-    "gn_finish": max |pose diff|}, and for the timed case {(level, V):
-    {kernel or plain function: (ms, plain ms, bound ms, bound by)}}."""
+    errors, {"linearize": max of the normalized H and g errors, "finish":
+    max |pose diff|, "gn_level_cluster" and "gn_step": max |pose diff| of
+    a whole level}, and for the timed case {(level, V): {single mode or
+    plain function: (ms, plain ms, bound ms, bound by)}}."""
     import torch
-    from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        gn_kernel, gn_reference)
     from egomotion_with_local_loop_closures_tpu_torch.track import alignment
     KL, CL = alignment.KeyframeLevel, alignment.CurrentLevel
     term_w = alignment._termination_weights(cfg.termination_weights,
                                             torch.float32, dev)
-    worst = {"gn_linearize": 0.0, "gn_finish": 0.0}
+    worst = dict.fromkeys(("linearize", "finish", *gn_kernel.KERNELS), 0.0)
     timed = {}
 
     def videos_of(kf, cur, pose, V):
@@ -680,6 +635,10 @@ def k1_phase(cases, cfg, dev, gpu):
     def state_clone(st):
         return gn_kernel.GNState(*(t.clone() for t in st))
 
+    def same(a, b):
+        return all(torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+                   for x, y in zip(a, b))
+
     for label, kf_levels, cur_levels, pose0, is_timed in cases:
         for level in range(cfg.num_levels):
             intr = cfg.level_intrinsics(level)
@@ -693,23 +652,25 @@ def k1_phase(cases, cfg, dev, gpu):
                 dH, dg, de, dn = sum_errors(got, want)
                 # both against the plain version in float64: how far
                 # float32 itself leaves each from the exact sums.  A sum
-                # past K1_SUM_TOL from the plain one still passes if K1a's
-                # lies nearer the exact sum than the plain version's does
-                # (on the real frames the plain g is the farther one)
-                exact = alignment._gn_quantities(
-                    KL(*(t.double() for t in kf)),
-                    CL(*(t.double() for t in cur)), pose.double(), intr, cfg)
+                # past K1_SUM_TOL from the plain one still passes if the
+                # kernel's lies nearer the exact sum than the plain
+                # version's does (on the real frames the plain g is the
+                # farther one)
+                kf64 = KL(*(t.double() for t in kf))
+                cur64 = CL(*(t.double() for t in cur))
+                exact = alignment._gn_quantities(kf64, cur64, pose.double(),
+                                                 intr, cfg)
                 err64 = [sum_errors(tuple(t.double() for t in x), exact)
                          for x in (got, want)]
                 close = [d <= K1_SUM_TOL or k <= p for d, k, p in zip(
                     (dH, dg, de), err64[0][:3], err64[1][:3])]
                 check(all(close) and dn == 0,
-                      f"K1a on {label} level {level} V={V}: H {dH:.3g}, g "
-                      f"{dg:.3g}, energy {de:.3g} (tol {K1_SUM_TOL}, or "
-                      f"nearer float64 than the plain sums: {close}), "
-                      f"{dn} used counts differ")
-                # K1b on the plain system: a fresh level, then an iteration
-                # from a state with every other video frozen
+                      f"gn_step's linearization on {label} level {level} "
+                      f"V={V}: H {dH:.3g}, g {dg:.3g}, energy {de:.3g} (tol "
+                      f"{K1_SUM_TOL}, or nearer float64 than the plain sums: "
+                      f"{close}), {dn} used counts differ")
+                # the finish alone on the plain system: a fresh level, then
+                # an iteration from a state with every other video frozen
                 partials = gn_kernel.pack(*want)[..., None, :]
                 ref = gn_kernel._update(*want, pose, None, term_w)
                 got1 = gn_kernel.finish(partials, pose,
@@ -722,43 +683,74 @@ def k1_phase(cases, cfg, dev, gpu):
                 got2 = gn_kernel.finish(partials, st2.pose, st2, cfg, False)
                 dp = max(float((got1.pose - ref.pose).abs().max()),
                          float((got2.pose - ref2.pose).abs().max()))
-                same = all(torch.equal(getattr(a, f), getattr(b, f))
-                           for a, b in ((got1, ref), (got2, ref2))
-                           for f in ("iters", "done"))
-                check(dp <= K1_POSE_TOL and same,
-                      f"K1b on {label} level {level} V={V}: max |pose diff| "
-                      f"{dp:.3g} (tol {K1_POSE_TOL}), iters and done equal: "
-                      f"{same}")
-                worst["gn_linearize"] = max(worst["gn_linearize"], dH, dg)
-                worst["gn_finish"] = max(worst["gn_finish"], dp)
+                flags = all(torch.equal(getattr(a, f), getattr(b, f))
+                            for a, b in ((got1, ref), (got2, ref2))
+                            for f in ("iters", "done"))
+                check(dp <= K1_POSE_TOL and flags,
+                      f"gn_step's finish on {label} level {level} V={V}: max "
+                      f"|pose diff| {dp:.3g} (tol {K1_POSE_TOL}), iters and "
+                      f"done equal: {flags}")
+                worst["linearize"] = max(worst["linearize"], dH, dg)
+                worst["finish"] = max(worst["finish"], dp)
+                # a whole level of each kernel against the plain iterations
+                # and their float64 evaluation
+                traj = gn_reference.plain_trajectory(
+                    kf, cur, pose, level, cfg, n_iters, term_w)
+                traj64 = gn_reference.plain_trajectory(
+                    kf64, cur64, pose.double(), level, cfg, n_iters,
+                    term_w.double())
+                plain = traj.level()
+                lvl_msg = []
+                for kernel in gn_kernel.KERNELS:
+                    lvl = gn_kernel.run_level(kf, cur, pose, intr, cfg,
+                                              n_iters, kernel)
+                    again = gn_kernel.run_level(kf, cur, pose, intr, cfg,
+                                                n_iters, kernel)
+                    diff = float((lvl.pose - plain.pose).abs().max())
+                    agrees, apart = gn_reference.level_agreement(
+                        lvl, traj, traj64, level, K1_POSE_TOL)
+                    check(agrees, f"{kernel} on {label} level {level} V={V} "
+                          f"against the plain level: {'; '.join(apart)}")
+                    check(same(lvl, again), f"{kernel} on {label} level "
+                          f"{level} V={V}: a repeated call bit-equal")
+                    worst[kernel] = max(worst[kernel], diff)
+                    lvl_msg.append(
+                        f"{kernel} max |pose diff| {diff:.3g}" + (
+                            f" (parted where the plain metric lies within "
+                            f"{gn_reference.METRIC_TOL[level]} of 1: "
+                            f"{'; '.join(apart)})" if apart else ""))
+                    if V > 1:
+                        for b in range(V):
+                            alone = gn_kernel.run_level(
+                                KL(*(t[b] for t in kf)),
+                                CL(*(t[b] for t in cur)), pose[b], intr,
+                                cfg, n_iters, kernel)
+                            check(same(alone, (x[b] for x in lvl)),
+                                  f"{kernel}: a level of video {b} of {V} "
+                                  f"equals its own call bit for bit")
                 bits = ""
                 if V > 1:
                     parts = gn_kernel.linearize(kf, cur, pose, intr, cfg)
-                    lvl = alignment.gn_level(kf, cur, pose, level, cfg,
-                                             n_iters)
                     for b in range(V):
                         kf1, cur1 = KL(*(t[b] for t in kf)), \
                             CL(*(t[b] for t in cur))
                         check(torch.equal(gn_kernel.linearize(
                             kf1, cur1, pose[b], intr, cfg), parts[b]),
-                            f"K1a video {b} of {V} equals its own call")
-                        lvl1 = alignment.gn_level(kf1, cur1, pose[b], level,
-                                                  cfg, n_iters)
-                        check(all(torch.equal(x, y[b]) for x, y in zip(
-                            (*lvl1[:3], *lvl1[3]), (*lvl[:3], *lvl[3]))),
-                            f"a level of video {b} of {V} equals its own "
-                            f"call bit for bit")
+                            f"gn_step's partials of video {b} of {V} equal "
+                            f"its own call's")
                     bits = (f"; each of the {V} videos bit-equal to its own "
                             f"call (partials and a level of {n_iters} "
-                            f"iterations)")
+                            f"iterations of each kernel)")
                 print(f"K1 {label} level {level} "
                       f"({kf.image.shape[-2]}x{kf.image.shape[-1]}) V={V}: "
-                      f"K1a H {dH:.3g}, g {dg:.3g}, energy {de:.3g} of their "
-                      f"scales (from float64: K1a {err64[0][0]:.3g} / "
-                      f"{err64[0][1]:.3g} / {err64[0][2]:.3g}, plain "
-                      f"{err64[1][0]:.3g} / {err64[1][1]:.3g} / "
-                      f"{err64[1][2]:.3g}); K1b max |pose diff| {dp:.3g}"
-                      f"{bits}")
+                      f"linearization H {dH:.3g}, g {dg:.3g}, energy "
+                      f"{de:.3g} of their scales (from float64: kernel "
+                      f"{err64[0][0]:.3g} / {err64[0][1]:.3g} / "
+                      f"{err64[0][2]:.3g}, plain {err64[1][0]:.3g} / "
+                      f"{err64[1][1]:.3g} / {err64[1][2]:.3g}); finish max "
+                      f"|pose diff| {dp:.3g}; a level: "
+                      f"{', '.join(lvl_msg)}, iters {plain.iters.tolist()}, "
+                      f"repeated calls bit-equal{bits}")
                 if is_timed:
                     timed[(level, V)] = k1_times(kf, cur, pose, intr, cfg,
                                                  term_w, gpu, label, level)
@@ -766,12 +758,15 @@ def k1_phase(cases, cfg, dev, gpu):
 
 
 def k1_times(kf, cur, pose, intr, cfg, term_w, gpu, label, level):
-    """Device time per call of K1a, K1b and their plain versions (the
-    linearization, the update, the whole iteration) from CUDA-graph
-    replays, in turns, beside each kernel's bound."""
+    """Device time per call of gn_step's two single modes (a linearization
+    alone, a finish alone on given partials) and their plain versions
+    (the linearization, the update, the whole iteration) from CUDA-graph
+    replays, in turns, beside each mode's bound."""
     import torch
     from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
     from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import PEAK_BYTES_S, PEAK_F32_S, device_ms
     lead = pose.shape[:-1]
     V = pose[..., 0].numel()
     h, w = kf.image.shape[-2:]
@@ -785,9 +780,8 @@ def k1_times(kf, cur, pose, intr, cfg, term_w, gpu, label, level):
              torch.zeros(lead, device=pose.device),
              torch.zeros(lead, device=pose.device))
     fns = {
-        "gn_linearize": lambda: gn_kernel.linearize(kf, cur, pose, intr,
-                                                    cfg),
-        "gn_finish": lambda: gn_kernel.finish(parts, pose, st, cfg, True),
+        "linearize": lambda: gn_kernel.linearize(kf, cur, pose, intr, cfg),
+        "finish": lambda: gn_kernel.finish(parts, pose, st, cfg, True),
         "plain_linearize": lambda: alignment._gn_quantities(
             kf, cur, pose, intr, cfg),
         "plain_update": lambda: alignment._gn_update(*sys_, pose, *start,
@@ -799,37 +793,36 @@ def k1_times(kf, cur, pose, intr, cfg, term_w, gpu, label, level):
     for f in fns.values():
         f()
     order = ["plain_iteration", "plain_linearize", "plain_update",
-             "gn_linearize", "gn_finish"]
+             "linearize", "finish"]
     turns = {k: [] for k in fns}
     for name in order + order[::-1]:
-        reps = 200 if name.startswith("gn_") else 10
+        reps = 10 if name.startswith("plain") else 200
         turns[name].append(device_ms(fns[name], reps)[0])
     ms = {k: sum(v) / len(v) for k, v in turns.items()}
     work = {
         # six planes read, the pose read, the partials written
-        "gn_linearize": (V * (6 * h * w + 6 + nb * gn_kernel.SUMS) * 4,
-                         V * h * w * K1A_OPS_PER_PIXEL),
+        "linearize": (V * (6 * h * w + 6 + nb * gn_kernel.SUMS) * 4,
+                      V * h * w * gn_kernel.OPS_PER_PIXEL),
         # the partials and the pose read, pose and five scalars written
-        "gn_finish": (V * (nb * gn_kernel.SUMS + 6 + 11) * 4,
-                      V * (K1B_OPS_PER_VIDEO + nb * gn_kernel.SUMS)),
+        "finish": (V * (nb * gn_kernel.SUMS + 6 + 11) * 4,
+                   V * (gn_kernel.FINISH_OPS + nb * gn_kernel.SUMS)),
     }
-    plain_of = {"gn_linearize": "plain_linearize",
-                "gn_finish": "plain_update"}
+    plain_of = {"linearize": "plain_linearize", "finish": "plain_update"}
     out = {}
     for name, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
         bound = 1e3 * max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         out[name] = (ms[name], ms[plain_of[name]], bound, by)
-        print(f"{name} {label} level {level} ({h}x{w}) V={V}: device time "
-              f"per call {ms[name]:.5f} ms (turns "
+        print(f"gn_step {name} alone {label} level {level} ({h}x{w}) V={V}: "
+              f"device time per call {ms[name]:.5f} ms (turns "
               f"{' '.join(f'{t:.5f}' for t in turns[name])}), plain "
               f"{plain_of[name]} {ms[plain_of[name]]:.5f} ms; bound "
               f"{bound:.6f} ms by {by} ({nbytes} B, {ops} float32 ops), "
               f"{100 * bound / ms[name]:.1f} % of it reached; on {gpu}")
     out["plain_iteration"] = ms["plain_iteration"]
-    print(f"GN iteration {label} level {level} V={V}: K1a + K1b "
-          f"{ms['gn_linearize'] + ms['gn_finish']:.5f} ms against the plain "
+    print(f"GN iteration {label} level {level} V={V}: the two single modes "
+          f"{ms['linearize'] + ms['finish']:.5f} ms against the plain "
           f"iteration's {ms['plain_iteration']:.5f} ms; on {gpu}")
     return out
 
@@ -984,6 +977,8 @@ def k2_times(args, cfg, branches, gpu, label):
     from egomotion_with_local_loop_closures_tpu_torch.depth import stereo
     from egomotion_with_local_loop_closures_tpu_torch.ops import (
         stereo_kernel)
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import PEAK_BYTES_S, PEAK_F32_S, device_ms
     kern = lambda: stereo_kernel.observe(*args, cfg)  # noqa: E731
     plain = lambda: stereo.plain_observe(*args, cfg)  # noqa: E731
     kern()
@@ -1073,6 +1068,8 @@ def main() -> int:
         ellc_lc, graphs, io as ellc_io, pipeline, runner)
     from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
     from egomotion_with_local_loop_closures_tpu_torch.graph import ba
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import PEAK_BYTES_S, PEAK_F32_S, device_ms
     from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
     from egomotion_with_local_loop_closures_tpu_torch.runtime import cli
     from egomotion_with_local_loop_closures_tpu_torch.track import alignment
@@ -1286,11 +1283,13 @@ def main() -> int:
 
     phase(f"3b K1 against plain PyTorch: every level, V = 1 and "
           f"{K1_VIDEOS}, seeded and real planes")
-    check(sum(cfg.max_iters) == K1_ITERS
-          and sum(cfg.max_iters_replay) == K1_REPLAY_ITERS,
-          "K1's hand counts use the config's iteration counts")
+    check(gn_kernel.align_launches(cfg) == K1_ALIGN
+          and gn_kernel.align_launches(cfg, cfg.max_iters_replay)
+          == K1_REPLAY_ALIGN, "K1's hand counts are the config's iteration "
+          "counts and levels, by gn_kernel.CLUSTER_MAX_PIXELS")
+    tk = load_tool("time_k1_levels")
     img0, depth0, var0, img1 = (torch.as_tensor(a, device=dev) for a in
-                                gn_planes(5, cfg.shape))
+                                tk.gn_planes(5, cfg.shape))
     depths0, vars0 = fusion.build_depth_var_pyramid(depth0, var0,
                                                     cfg.num_levels)
     seeded_kf = tuple(alignment.KeyframeLevel(*lv) for lv in zip(
@@ -1307,6 +1306,10 @@ def main() -> int:
     worst_k1, timed_k1 = k1_phase(
         [("seeded 270x480", seeded_kf, seeded_cur, seeded_pose, False),
          ("real 270x480", real_kf, real_cur, real_pose, True)], cfg, dev, gpu)
+    # each level's iterations and one align as one graph each, as the
+    # step graphs hold them, from the pose the pipeline starts align at
+    levels_k1 = tk.level_times(
+        real_kf, real_cur, st.prev_wrt_kf, cfg, gpu)
 
     phase(f"3c K2 against plain PyTorch: V = 1 and {K2_VIDEOS}, seeded and "
           f"real planes, fresh and evolved states")
@@ -1974,8 +1977,9 @@ def main() -> int:
     print(f"K1 launches of each rank: {[rk['k1'] for rk in ranks]}")
     check(d_H <= SHARDED_GN_TOL and d_g <= SHARDED_GN_TOL,
           "the two-rank GN system equals the single-process one")
-    check(all(rk["k1"] == {"gn_linearize": 1, "gn_finish": 0}
-              for rk in ranks), "each rank linearizes its rows with K1a")
+    check(all(rk["k1"] == {"gn_level_cluster": 0, "gn_step": 1}
+              for rk in ranks), "each rank linearizes its rows with one "
+          "gn_step launch")
     check(d_nodes <= SHARDED_BA_TOL, "the two-rank Sim(3) refinement "
           "equals refine")
 
@@ -2230,33 +2234,56 @@ def main() -> int:
                             "bound_ms": timed_videos[name][2],
                             "bound_by": timed_videos[name][3]}}
         for name in ("do_regularization", "regularize")]
-    # K1: headline numbers at level 0 for one video (the main path's
-    # finest level), every level and V under "levels"
-    k1_rows = [
-        {"name": f"gn_kernel.{name}", "route": "cuda",
-         "source": os.path.join(PKG, "csrc", "gn_kernel.cu"),
-         "replaces": "egomotion_with_local_loop_closures_tpu/track/"
-                     "alignment.py:89",
-         "launches": launches_k1["gn_run_sequence"][name],
-         "launches_by_path": {k: v[name] for k, v in launches_k1.items()},
-         "warmup_launches_by_path": {k: v[name]
-                                     for k, v in warmups_k1.items()},
-         "max_abs_err": worst_k1[name],
-         "max_abs_err_of": ("max over H and g of |diff| / scale (H: its "
-                            "largest entry, g_i: sqrt(H_ii E))"
-                            if name == "gn_linearize" else
-                            "max |pose component diff|"),
-         "ms": timed_k1[(0, 1)][name][0],
-         "plain_ms": timed_k1[(0, 1)][name][1],
-         "bound_ms": timed_k1[(0, 1)][name][2],
-         "bound_by": timed_k1[(0, 1)][name][3], "library_ms": None,
-         "plain_iteration_ms": timed_k1[(0, 1)]["plain_iteration"],
-         "levels": {f"level{lv}_V{V}": {
-             "ms": t[name][0], "plain_ms": t[name][1],
-             "bound_ms": t[name][2], "bound_by": t[name][3],
-             "plain_iteration_ms": t["plain_iteration"]}
-             for (lv, V), t in sorted(timed_k1.items())}}
-        for name in ("gn_linearize", "gn_finish")]
+    # K1: per launch, at the largest level each kernel runs on the main
+    # path for one video (gn_level_cluster: level 2, one launch; gn_step:
+    # level 0, the level's graph over its live launches: a launch after
+    # the video froze returns at once); every level and V of both kernels
+    # under "levels", one align under "align", and the single modes'
+    # one-node times under "single_modes"
+    def k1_row(name, level):
+        t = levels_k1["V1"][f"level{level}"]
+        var = t["variants"][name]
+        n = sum(var["launches"].values())
+        live = 1 if name == "gn_level_cluster" else max(t["iters_used"][0])
+        return {
+            "name": f"gn_kernel.{name}", "route": "cuda",
+            "source": os.path.join(PKG, "csrc", "gn_kernel.cu"),
+            "replaces": "egomotion_with_local_loop_closures_tpu/track/"
+                        "alignment.py:89",
+            "launches": launches_k1["gn_run_sequence"][name],
+            "launches_by_path": {k: v[name] for k, v in launches_k1.items()},
+            "warmup_launches_by_path": {k: v[name]
+                                        for k, v in warmups_k1.items()},
+            "max_abs_err": worst_k1[name],
+            "max_abs_err_of": "max |pose component diff| of a whole level "
+                              "against the plain level",
+            "ms": var["ms"] / live, "plain_ms": t["plain_ms"] / live,
+            "bound_ms": var["bound_ms"] / live, "bound_by": var["bound_by"],
+            "library_ms": None, "of": f"level {level}, one video: a "
+                                      f"level of {n} launches, {live} of "
+                                      f"them live, / {live}",
+            "levels": {f"level{lv}_V{V}": dict(
+                ms=levels_k1[f"V{V}"][f"level{lv}"]["variants"][name]["ms"],
+                plain_ms=levels_k1[f"V{V}"][f"level{lv}"]["plain_ms"],
+                bound_ms=levels_k1[f"V{V}"][f"level{lv}"]["variants"][name][
+                    "bound_ms"],
+                launches=levels_k1[f"V{V}"][f"level{lv}"]["variants"][name][
+                    "launches"])
+                for V in (1, K1_VIDEOS) for lv in range(cfg.num_levels)},
+            "align": {f"V{V}": dict(
+                ms=levels_k1[f"V{V}"]["align"]["variants"]["gn_level"]["ms"],
+                plain_ms=levels_k1[f"V{V}"]["align"]["plain_ms"],
+                bound_ms=levels_k1[f"V{V}"]["align"]["variants"]["gn_level"][
+                    "bound_ms"]) for V in (1, K1_VIDEOS)}}
+    k1_rows = [k1_row("gn_level_cluster", 2), k1_row("gn_step", 0)]
+    k1_rows[1]["single_modes"] = {
+        "linearize_max_abs_err": worst_k1["linearize"],
+        "finish_max_abs_err": worst_k1["finish"],
+        **{f"{mode}_level{lv}_V{V}": dict(
+            ms=t[mode][0], plain_ms=t[mode][1], bound_ms=t[mode][2],
+            bound_by=t[mode][3])
+            for (lv, V), t in sorted(timed_k1.items())
+            for mode in ("linearize", "finish")}}
     # K2: the real frames from the pipeline's state, one video; eight
     # videos under "videos"
     k2_rows = [

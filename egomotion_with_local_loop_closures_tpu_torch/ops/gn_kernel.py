@@ -1,26 +1,37 @@
-"""One Gauss-Newton iteration of the tracker as two hand-written CUDA
-kernels (K1).
+"""The tracker's Gauss-Newton iterations as two hand-written CUDA kernels
+(K1).
 
 Replaces the XLA program that the JAX package compiles for one GN
 iteration: ``egomotion_with_local_loop_closures_tpu/track/alignment.py``
 ``_gn_quantities`` (alignment.py:89) with the 6x6 solve, the pose update
 and the freeze mask of its ``gn_level``.  The CUDA source is
-``csrc/gn_kernel.cu``; what bounds it and how it is laid out is written
-at the top of that file.
+``csrc/gn_kernel.cu``.  On this card an iteration's bytes take under a
+microsecond at 270x480 and far less on the coarser levels, while its
+finish (the solve, compose and exp of one video) is a serial chain of a
+few microseconds and every launch costs a few more: K1 is bound by
+latency, and the design cuts launches and serial chains:
 
-- :func:`linearize` (K1a, ``gn_linearize``): warps, samples and weighs
-  every template pixel and sums the 29 terms of the 6x6 system (H's lower
-  triangle, g, the energy, the used count) per block of 256 pixels, into
-  ``partials`` (V, blocks, 29);
-- :func:`finish` (K1b, ``gn_finish``): sums a video's partials, solves,
-  composes the step onto the pose and applies the freeze mask, in place
-  on a :class:`GNState`.
+- ``gn_level_cluster``: a whole level in one launch, one thread-block
+  cluster a video; the iterations loop inside the launch, the blocks meet
+  at the cluster's barrier once an iteration, and each block sums all
+  blocks' sums through distributed shared memory in rank order and
+  finishes alike;
+- ``gn_step``: one launch an iteration (the levels too large to run
+  fast in one cluster): a thread a pixel, and the block that takes its video's last
+  ticket (an integer counter in :class:`Workspace`) sums the blocks'
+  partials in a fixed order and finishes.  Its other modes: a
+  linearization alone (:func:`linearize`, :func:`gn_quantities`: the
+  pixel-sharded step, ``parallel/sharded.py``, at a row offset) and a
+  finish alone on given partials (:func:`finish`).
 
-:func:`gn_level` runs a level's iterations as one launch of each per
-iteration, and :func:`gn_quantities` one linearization's sums (the
-pixel-sharded step, ``parallel/sharded.py``).  Each wrapper counts its
-launches in :data:`launches`; a call made while a CUDA graph captures
-launches nothing, so ``runtime/graphs.py`` counts those calls apart with
+:func:`gn_level` takes ``gn_level_cluster`` for a template of at most
+:data:`CLUSTER_MAX_PIXELS` pixels and ``gn_step`` above;
+:func:`run_level` runs either at any level.  Each finish forms the next
+iteration's transform ``exp(pose)``, so no block but a level's first
+iteration's starts with a serial ``exp_se3`` (gn_step hands it on in
+:class:`Workspace`).  Each wrapper counts its launches in
+:data:`launches`; a call made while a CUDA graph captures launches
+nothing, so ``runtime/graphs.py`` counts those calls apart with
 :func:`counting_into` and adds the graph's K1 nodes at each replay.
 
 For tensors on the CPU each function runs the plain PyTorch version
@@ -29,8 +40,9 @@ For tensors on the CPU each function runs the plain PyTorch version
 kernels or raises; it never falls back.  Nothing here reads the card's
 values back to the host or copies host data to the card, so a CUDA graph
 can capture every call: the intrinsics, weights and constants are kernel
-arguments, and a level's first iteration starts the freeze state in the
-kernel (``first``).
+arguments, a level's first iteration starts the freeze state in the
+kernel, and the workspace of a (device, V) is made on its first call,
+outside any capture (the step graphs' eager warm-up).
 """
 
 from __future__ import annotations
@@ -49,16 +61,38 @@ from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
 
 SOURCE: Path = ops.CSRC / "gn_kernel.cu"
-THREADS = 256           # K1a's block: one template pixel a thread
+THREADS = 256           # gn_step's block: one template pixel a thread
 SUMS = 29               # H's lower triangle (21), g (6), energy, used count
 # (i, j) of H's lower triangle, row-major: the order of the partials
 TRIL = [(i, j) for i in range(6) for j in range(i + 1)]
+# The largest template, in pixels, whose level gn_level runs as one
+# gn_level_cluster launch; a larger one runs gn_step, a launch an
+# iteration.  At 270x480 the levels hold 129,600, 32,400, 8,040 and 1,980
+# pixels: levels 2-3 take the cluster.  At level 1 each of a cluster's
+# 4,096 threads walks ~8 pixels in turn, and gn_step's 127 blocks were
+# the faster at one video (whole-level graphs on an H100, PERF.md,
+# Findings: tools/time_k1_levels.py and tools/tune_gn_kernel.py).
+CLUSTER_MAX_PIXELS = 10_000
+KERNELS = ("gn_level_cluster", "gn_step")
+# float32 operations a template pixel an iteration, counted by hand from
+# csrc/gn_kernel.cu (each add, sub, mul, div, sqrt, abs, floor, ceil, min,
+# max and float compare one): backprojection 6, R P + t 18, UNZERO 2,
+# projection 6, bilinear corners 14, three blends 36, u, v, 1/d and the
+# residual 4, the variance and Huber weight 27, the steepest-descent rows
+# 37, the 29 products 41 and the block's sum 29
+OPS_PER_PIXEL = 220
+# a finish's serial operations a video (Cholesky and substitutions 184,
+# exp_se3 of the step and of the new pose 240, the product 63, log_se3
+# 140, the termination metric 12); summing its partials adds one a partial
+FINISH_OPS = 640
+# gn_step's modes (csrc/gn_kernel.cu)
+_ITERATE, _LINEARIZE, _FINISH = 0, 1, 2
 
-# Launches on the CUDA path since the last reset_launches(), per wrapper.
-launches: Dict[str, int] = {"gn_linearize": 0, "gn_finish": 0}
+# Launches on the CUDA path since the last reset_launches(), per kernel.
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # Launches of the eager warm-ups before CUDA graph captures, kept apart
 # from launches (runtime/graphs.py), since the last reset_launches().
-warmup_launches: Dict[str, int] = {"gn_linearize": 0, "gn_finish": 0}
+warmup_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # where the wrappers count their calls: launches, or counting_into's dict
 _counts: Dict[str, int] = launches
 
@@ -93,9 +127,9 @@ def counting_into(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
 
 def wrapper_of(kernel_name: str) -> Optional[str]:
     """The counter of the CUDA function of this (mangled) name:
-    ``gn_linearize`` or ``gn_finish``; None for any other function."""
-    m = re.search(r"\d+gn_(linearize|finish)E", kernel_name)
-    return None if m is None else f"gn_{m.group(1)}"
+    ``gn_level_cluster`` or ``gn_step``; None for any other function."""
+    m = re.search(r"\d+(gn_level_cluster|gn_step)E", kernel_name)
+    return None if m is None else m.group(1)
 
 
 def build() -> Path:
@@ -105,13 +139,13 @@ def build() -> Path:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C signatures of ``ellc_gn_linearize`` and
-    ``ellc_gn_finish`` on a loaded library."""
+    """Declares the C signatures of ``ellc_gn_step`` and
+    ``ellc_gn_level_cluster`` on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ellc_gn_linearize.argtypes = [p] * 9 + [i] * 5 + [f] * 6 + [p]
-    lib.ellc_gn_linearize.restype = i
-    lib.ellc_gn_finish.argtypes = [p] * 8 + [i] * 3 + [f] * 6 + [p]
-    lib.ellc_gn_finish.restype = i
+    lib.ellc_gn_step.argtypes = [p] * 16 + [i] * 8 + [f] * 12 + [p]
+    lib.ellc_gn_step.restype = i
+    lib.ellc_gn_level_cluster.argtypes = [p] * 13 + [i] * 5 + [f] * 12 + [p]
+    lib.ellc_gn_level_cluster.restype = i
     return lib
 
 
@@ -135,8 +169,40 @@ class GNState(NamedTuple):
     done: torch.Tensor
 
 
+class Workspace(NamedTuple):
+    """What gn_step's launches keep between them on one device for V
+    videos: the tickets (V,) int32, 0 between launches, and ``T`` (V, 12),
+    the transform exp_se3(pose) that one iteration's finish hands to the
+    next."""
+    tickets: torch.Tensor
+    T: torch.Tensor
+
+
+_workspaces: Dict[Tuple[torch.device, int], Workspace] = {}
+
+
+def make_workspace(V: int, device) -> Workspace:
+    """Zeroed tickets and a transform buffer (a level's first iteration
+    forms its transform)."""
+    return Workspace(torch.zeros(V, dtype=torch.int32, device=device),
+                     torch.zeros((V, 12), dtype=torch.float32, device=device))
+
+
+def workspace(device: torch.device, V: int) -> Workspace:
+    """The workspace of ``device`` (a CUDA device) for V videos, made on
+    its first call, which must not be under a CUDA graph capture."""
+    ws = _workspaces.get((device, V))
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"K1's workspace for {V} videos on {device} is made outside "
+                f"a CUDA graph capture: run the call once eagerly first")
+        ws = _workspaces[(device, V)] = make_workspace(V, device)
+    return ws
+
+
 def empty_state(pose0: torch.Tensor) -> GNState:
-    """Uninitialised state tensors for :func:`finish` with ``first``."""
+    """Uninitialised state tensors, for a kernel that starts the level."""
     lead = pose0.shape[:-1]
     f32 = dict(dtype=torch.float32, device=pose0.device)
     i32 = dict(dtype=torch.int32, device=pose0.device)
@@ -209,50 +275,96 @@ def _shapes(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
 
 
 def blocks(h: int, w: int) -> int:
-    """K1a's blocks for an h x w template: one per 256 pixels."""
+    """gn_step's blocks a video for an h x w template: one per 256
+    pixels."""
     return -(-h * w // THREADS)
+
+
+def kernel_for(h: int, w: int) -> str:
+    """The kernel :func:`gn_level` runs an h x w template's level with."""
+    return "gn_level_cluster" if h * w <= CLUSTER_MAX_PIXELS else "gn_step"
+
+
+def align_launches(cfg: ELLCConfig,
+                   max_iters: Optional[Tuple[int, ...]] = None
+                   ) -> Dict[str, int]:
+    """K1's launches in one ``alignment.align`` on the card with these
+    iteration counts (``cfg.max_iters`` by default): one gn_level_cluster
+    launch a level that takes it, one gn_step launch an iteration of a
+    level that does not, none for a level of no iterations."""
+    counts = dict.fromkeys(KERNELS, 0)
+    for level, n in enumerate(cfg.max_iters if max_iters is None
+                              else max_iters):
+        kernel = kernel_for(*cfg.level_shape(level))
+        if n:
+            counts[kernel] += 1 if kernel == "gn_level_cluster" else int(n)
+    return counts
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch_linearize(lib: ctypes.CDLL, kf: alignment.KeyframeLevel,
-                      cur: alignment.CurrentLevel, pose: torch.Tensor,
-                      intr: Tuple[float, float, float, float],
-                      cfg: ELLCConfig, y_offset: int,
-                      done: Optional[torch.Tensor], stream: int
-                      ) -> torch.Tensor:
-    """One launch of ``ellc_gn_linearize`` on ``stream``; returns the
-    partials (..., blocks, 29)."""
-    V, h, w, ch = _shapes(kf, cur, pose)
-    partials = torch.empty(pose.shape[:-1] + (blocks(h, w), SUMS),
-                           dtype=torch.float32, device=pose.device)
-    fx, fy, cx, cy = intr
-    err = lib.ellc_gn_linearize(
-        *[_ptr(t) for t in (*kf, *cur, pose, done, partials)],
-        V, h, w, ch, int(y_offset), fx, fy, cx, cy,
-        cfg.camera_pixel_noise_2, cfg.huber_d / 2.0, ctypes.c_void_p(stream))
-    _raise_on(err, "gn_linearize")
-    return partials
-
-
-def _launch_finish(lib: ctypes.CDLL, partials: torch.Tensor,
-                   pose_in: torch.Tensor, st: GNState, cfg: ELLCConfig,
-                   first: bool, stream: int) -> GNState:
-    """One launch of ``ellc_gn_finish`` on ``stream``, writing ``st``."""
-    lead = tuple(pose_in.shape[:-1])
-    if (tuple(partials.shape[:-2]) != lead or partials.shape[-1] != SUMS
-            or any(tuple(t.shape) != lead for t in st[1:])
-            or st.pose.shape != pose_in.shape):
-        raise ValueError(f"partials {tuple(partials.shape)} and state "
-                         f"{[tuple(t.shape) for t in st]} do not fit the "
-                         f"pose {tuple(pose_in.shape)}")
-    err = lib.ellc_gn_finish(
-        *[_ptr(t) for t in (partials, pose_in, *st)],
-        math.prod(lead), partials.shape[-2], int(first),
+def _launch_step(lib: ctypes.CDLL, mode: int, first: bool,
+                 pose_in: torch.Tensor, st: GNState,
+                 partials: torch.Tensor, cfg: ELLCConfig, stream: int,
+                 kf: Optional[alignment.KeyframeLevel] = None,
+                 cur: Optional[alignment.CurrentLevel] = None,
+                 intr: Tuple[float, float, float, float] = (0, 0, 0, 0),
+                 y_offset: int = 0, ws: Optional[Workspace] = None) -> None:
+    """One launch of ``ellc_gn_step`` on ``stream``: ``mode`` _ITERATE
+    (planes, ``ws`` and a whole state), _LINEARIZE (planes; of the state
+    only ``done`` may be given, the rest None) or _FINISH (no planes; the
+    given partials)."""
+    V = math.prod(pose_in.shape[:-1])
+    if kf is None:
+        planes, h, w, ch = (None,) * 6, 0, 0, 0
+    else:
+        planes = (*kf, *cur)
+        _, h, w, ch = _shapes(kf, cur, pose_in)
+    tickets, T = (None, None) if ws is None else ws
+    err = lib.ellc_gn_step(
+        *[_ptr(t) for t in (*planes, pose_in, *st, T, partials, tickets)],
+        V, h, w, ch, int(y_offset), partials.shape[-2], mode, int(first),
+        *intr, cfg.camera_pixel_noise_2, cfg.huber_d / 2.0,
         *cfg.termination_weights, ctypes.c_void_p(stream))
-    _raise_on(err, "gn_finish")
+    _raise_on(err, "gn_step")
+
+
+def _launch_cluster(lib: ctypes.CDLL, kf: alignment.KeyframeLevel,
+                    cur: alignment.CurrentLevel, pose0: torch.Tensor,
+                    st: GNState, intr: Tuple[float, float, float, float],
+                    cfg: ELLCConfig, num_iters: int, stream: int) -> None:
+    """One launch of ``ellc_gn_level_cluster`` on ``stream``: the level's
+    ``num_iters`` iterations from ``pose0``, written to ``st``."""
+    V, h, w, ch = _shapes(kf, cur, pose0)
+    err = lib.ellc_gn_level_cluster(
+        *[_ptr(t) for t in (*kf, *cur, pose0, *st)],
+        V, h, w, ch, int(num_iters), *intr, cfg.camera_pixel_noise_2,
+        cfg.huber_d / 2.0, *cfg.termination_weights, ctypes.c_void_p(stream))
+    _raise_on(err, "gn_level_cluster")
+
+
+def level_launches(lib: ctypes.CDLL, ws: Workspace,
+                   kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
+                   pose0: torch.Tensor,
+                   intr: Tuple[float, float, float, float], cfg: ELLCConfig,
+                   num_iters: int, kernel: str, stream: int) -> GNState:
+    """A level's ``num_iters`` (>= 1) iterations from ``pose0`` as
+    ``kernel`` launches of ``lib`` on ``stream`` (one of gn_level_cluster,
+    or one of gn_step an iteration), on contiguous planes; returns the new
+    state."""
+    st = empty_state(pose0)
+    if kernel == "gn_level_cluster":
+        _launch_cluster(lib, kf, cur, pose0, st, intr, cfg, num_iters,
+                        stream)
+        return st
+    h, w = kf.image.shape[-2:]
+    partials = torch.empty(pose0.shape[:-1] + (blocks(h, w), SUMS),
+                           dtype=torch.float32, device=pose0.device)
+    for it in range(num_iters):
+        _launch_step(lib, _ITERATE, it == 0, pose0 if it == 0 else st.pose,
+                     st, partials, cfg, stream, kf, cur, intr, ws=ws)
     return st
 
 
@@ -261,10 +373,11 @@ def linearize(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
               cfg: ELLCConfig, y_offset: int = 0,
               done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One linearization at ``pose`` ((6,) or (V, 6), the level fields
-    (H, W) or (V, H, W)): partials (..., blocks, 29).  On the CPU the plain
-    ``_gn_quantities``'s sums as one block.  ``done`` (int32, the pose's
-    leading axes): videos whose blocks K1a skips (their partials are left
-    unwritten), as :func:`finish` ignores them."""
+    (H, W) or (V, H, W)): partials (..., blocks, 29), one gn_step launch.
+    On the CPU the plain ``_gn_quantities``'s sums as one block.  ``done``
+    (int32, the pose's leading axes): videos whose blocks the kernel skips
+    (their partials are left unwritten), as :func:`finish` ignores
+    them."""
     if pose.device.type == "cpu":
         return pack(*alignment._gn_quantities(kf, cur, pose, intr, cfg,
                                               y_offset))[..., None, :]
@@ -274,10 +387,14 @@ def linearize(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
     if done is not None:
         named["done"] = done
     _check(named, {"done": torch.int32})
+    _, h, w, _ = _shapes(kf, cur, pose)
+    partials = torch.empty(pose.shape[:-1] + (blocks(h, w), SUMS),
+                           dtype=torch.float32, device=pose.device)
     with torch.cuda.device(pose.device):
-        partials = _launch_linearize(_library(), kf, cur, pose, intr, cfg,
-                                     y_offset, done, _stream())
-    _counts["gn_linearize"] += 1
+        _launch_step(_library(), _LINEARIZE, done is None, pose,
+                     GNState(*(None,) * 5, done), partials, cfg, _stream(),
+                     kf, cur, intr, y_offset)
+    _counts["gn_step"] += 1
     return partials
 
 
@@ -301,22 +418,30 @@ def _update(Hmat, g, e, n, pose, st: Optional[GNState], term_w
 def finish(partials: torch.Tensor, pose_in: torch.Tensor, st: GNState,
            cfg: ELLCConfig, first: bool) -> GNState:
     """Sum ``partials`` (..., blocks, 29), solve, update and freeze: one GN
-    iteration after its linearization.  ``first``: the level's first
-    iteration, whose pose is ``pose_in`` and which starts the freeze
-    state (``st`` is then only written); else ``pose_in`` is ``st.pose``.
-    On the card the kernel writes ``st``'s tensors in place and returns
-    ``st``; on the CPU the plain body returns new tensors."""
+    iteration after its linearization (gn_step's finish alone, one block a
+    video).  ``first``: the level's first iteration, whose pose is
+    ``pose_in`` and which starts the freeze state (``st`` is then only
+    written); else ``pose_in`` is ``st.pose``.  On the card the kernel
+    writes ``st``'s tensors in place and returns ``st``; on the CPU the
+    plain body returns new tensors."""
     if pose_in.device.type == "cpu":
         term_w = alignment._termination_weights(cfg.termination_weights,
                                                 torch.float32, pose_in.device)
         return _update(*sums(partials), pose_in, None if first else st,
                        term_w)
+    lead = tuple(pose_in.shape[:-1])
+    if (tuple(partials.shape[:-2]) != lead or partials.shape[-1] != SUMS
+            or any(tuple(t.shape) != lead for t in st[1:])
+            or st.pose.shape != pose_in.shape):
+        raise ValueError(f"partials {tuple(partials.shape)} and state "
+                         f"{[tuple(t.shape) for t in st]} do not fit the "
+                         f"pose {tuple(pose_in.shape)}")
     _check(dict(partials=partials, pose_in=pose_in, **st._asdict()),
            {"iters": torch.int32, "done": torch.int32})
     with torch.cuda.device(pose_in.device):
-        _launch_finish(_library(), partials, pose_in, st, cfg, first,
-                       _stream())
-    _counts["gn_finish"] += 1
+        _launch_step(_library(), _FINISH, first, pose_in, st, partials, cfg,
+                     _stream())
+    _counts["gn_step"] += 1
     return st
 
 
@@ -326,8 +451,8 @@ def gn_quantities(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """One linearization's (H, g, energy, used count): the plain
-    ``_gn_quantities`` on the CPU, K1a and a fixed-order sum of its
-    partials on the card."""
+    ``_gn_quantities`` on the CPU, gn_step's linearization and a
+    fixed-order sum of its partials on the card."""
     if pose.device.type == "cpu":
         return alignment._gn_quantities(kf, cur, pose, intr, cfg, y_offset)
     kf = alignment.KeyframeLevel(*(t.contiguous() for t in kf))
@@ -340,8 +465,9 @@ def iterate(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
             cfg: ELLCConfig, num_iters: int, lin=linearize, fin=finish
             ) -> GNState:
     """A level's ``num_iters`` (>= 1) iterations, each one ``lin`` and one
-    ``fin`` call (K1a and K1b); the first starts the freeze state from
-    ``pose0``, the others skip the frozen videos' linearization."""
+    ``fin`` call (a linearization and a finish alone); the first starts
+    the freeze state from ``pose0``, the others skip the frozen videos'
+    linearization."""
     st = empty_state(pose0)
     for it in range(num_iters):
         first = it == 0
@@ -352,12 +478,38 @@ def iterate(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
     return st
 
 
+def run_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
+              pose0: torch.Tensor, intr: Tuple[float, float, float, float],
+              cfg: ELLCConfig, num_iters: int, kernel: str) -> GNState:
+    """A level's ``num_iters`` (>= 1) iterations from ``pose0`` with
+    ``kernel`` (``gn_level_cluster`` or ``gn_step``) at any level; on the
+    CPU the plain :func:`iterate`."""
+    if pose0.device.type == "cpu":
+        return iterate(kf, cur, pose0, intr, cfg, num_iters)
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
+    kf = alignment.KeyframeLevel(*(t.contiguous() for t in kf))
+    cur = alignment.CurrentLevel(*(t.contiguous() for t in cur))
+    pose0 = pose0.contiguous()
+    named = dict(zip(("kf_image", "kf_depth", "kf_var"), kf))
+    named.update(zip(("cur_image", "cur_gradx", "cur_grady"), cur))
+    named["pose0"] = pose0
+    _check(named, {})
+    V = math.prod(pose0.shape[:-1])
+    with torch.cuda.device(pose0.device):
+        st = level_launches(_library(), workspace(pose0.device, V), kf, cur,
+                            pose0, intr, cfg, num_iters, kernel, _stream())
+    _counts[kernel] += 1 if kernel == "gn_level_cluster" else num_iters
+    return st
+
+
 def gn_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
              pose0: torch.Tensor, level: int, cfg: ELLCConfig,
              num_iters: int):
-    """``alignment.gn_level`` on the card: ``num_iters`` launches of K1a
-    and K1b.  Returns (pose, weighted_pose, iters_used, (energy,
-    valid_count)), as the plain version does."""
+    """``alignment.gn_level`` on the card: one gn_level_cluster launch for
+    a template of at most :data:`CLUSTER_MAX_PIXELS` pixels, else
+    ``num_iters`` gn_step launches.  Returns (pose, weighted_pose,
+    iters_used, (energy, valid_count)), as the plain version does."""
     if pose0.device.type == "cpu":
         return alignment.gn_level(kf, cur, pose0, level, cfg, num_iters)
     if num_iters == 0:
@@ -366,8 +518,7 @@ def gn_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
         return (pose0, torch.full_like(zero, float("inf")),
                 torch.zeros(lead, dtype=torch.int32, device=pose0.device),
                 (zero, zero.clone()))
-    st = iterate(alignment.KeyframeLevel(*(t.contiguous() for t in kf)),
-                 alignment.CurrentLevel(*(t.contiguous() for t in cur)),
-                 pose0.contiguous(), cfg.level_intrinsics(level), cfg,
-                 num_iters)
+    h, w = kf.image.shape[-2:]
+    st = run_level(kf, cur, pose0, cfg.level_intrinsics(level), cfg,
+                   num_iters, kernel_for(h, w))
     return st.pose, st.wp_last, st.iters, (st.energy, st.valid)

@@ -28,8 +28,9 @@ asks for the CPU.  Whether V videos fit on the card is checked by
 3 threads striping the rows of the template with per-thread 6x6 partials
 summed at the join (``src/PixelWisePyramid.cpp:416-455``): each rank of
 the ``pixel`` group linearizes its block of the template's rows against
-the whole current image (on the card one launch of K1a,
-``ops/gn_kernel.py``, at the block's row offset), and H and g are summed
+the whole current image (on the card one launch of K1's ``gn_step`` in
+its linearize-only mode, ``ops/gn_kernel.py``, at the block's row
+offset), and H and g are summed
 by one ``all_reduce``.  The JAX package does this with ``shard_map`` and
 ``psum``.
 """

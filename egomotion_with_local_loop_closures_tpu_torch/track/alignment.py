@@ -21,11 +21,12 @@ tracks V videos at once (the batched pipeline, ``parallel/sharded.py``):
 keyframe and current levels (V, H, W), poses (V, 6), one 6x6 system and
 one freeze mask per video.
 
-On the card, :func:`gn_level` (so :func:`align`) runs each iteration as
-two hand-written CUDA kernels, K1 (``ops/gn_kernel.py``,
-``csrc/gn_kernel.cu``): the linearize-and-reduce of
-:func:`_gn_quantities`, then the solve, pose update and freeze mask of
-:func:`_gn_update`.  Here those functions are K1's plain twin, which runs
+On the card, :func:`gn_level` (so :func:`align`) runs a level's
+iterations, each the linearize-and-reduce of :func:`_gn_quantities` and
+the solve, pose update and freeze mask of :func:`_gn_update`, in the
+hand-written CUDA kernels of K1 (``ops/gn_kernel.py``,
+``csrc/gn_kernel.cu``): a small level in one thread-block-cluster
+launch, a larger one a launch an iteration.  Here those functions are K1's plain twin, which runs
 on the CPU and against which the kernels are held.  The constant-weight
 iteration of :func:`gn_level_const_weight` (K5, the same warp and
 reduction with fixed weights) and :func:`weight_image` are plain PyTorch
@@ -315,9 +316,10 @@ def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,
 
     ``pose0`` is (6,), or (V, 6) for V videos whose level fields are
     (V, H, W); each video has its own freeze mask, so one video's
-    convergence or failed step never stops another.  On a CUDA tensor each
-    iteration is one launch of each of K1's two kernels
-    (``ops/gn_kernel.py``); on the CPU it is the plain twin below."""
+    convergence or failed step never stops another.  On a CUDA tensor the
+    level runs in K1's kernels (``ops/gn_kernel.py``: one cluster launch
+    for a small level, one launch an iteration for a larger one); on the
+    CPU it is the plain twin below."""
     if pose0.device.type != "cpu":
         # imported here: ops.gn_kernel imports this module
         from egomotion_with_local_loop_closures_tpu_torch.ops import (

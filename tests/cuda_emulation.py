@@ -1,13 +1,32 @@
 """The port's CUDA sources built for the CPU with g++, for the tests.
 
-A shim header stands in for the CUDA runtime: a kernel launch becomes
-``emu_launch``, which runs the grid's blocks one after another, each as
-one ``std::thread`` per CUDA thread joined by a ``std::barrier`` at every
-``__syncthreads``; ``__shared__`` variables are function statics (one
-block runs at a time) and ``atomicAdd`` on an int is a
-``std::atomic_ref``.  The sources' headers (``csrc/*.cuh``) are copied
-beside them.  Built with ``-ffp-contract=off``, as nvcc's ``-fmad=false``
-keeps every multiply and add apart.  The grid's z axis is not emulated
+A shim header stands in for the CUDA runtime.  A kernel launch becomes
+``emu_launch``, which runs the grid's blocks one after another, or, for a
+kernel declared with ``__cluster_dims__(X, 1, 1)``, one cluster of X
+blocks after another.  Each CUDA thread of the running block (or cluster)
+is a fiber (``ucontext``) on the calling thread, and a round-robin
+scheduler switches between them only where CUDA threads meet:
+
+- ``__syncthreads`` waits for the block's live threads;
+- ``__shfl_xor_sync`` and ``__shfl_down_sync`` exchange one 32-bit value
+  between the 32 threads of a warp, each lane writing its slot and waiting
+  for the warp's live threads (two sets of slots taken in turn, so one
+  wait a shuffle suffices);
+- ``cooperative_groups::this_cluster()``'s ``sync`` waits for every live
+  thread of the cluster, ``block_rank`` is the block's index in it, and
+  ``map_shared_rank`` maps an address in the block's dynamic shared
+  memory to the same offset in another block's.
+
+A thread that returns leaves every group it belongs to, as an exited CUDA
+thread no longer holds a barrier back.  ``__shared__`` variables are
+function statics, one copy for all blocks: a cluster kernel keeps its
+shared memory in its dynamic buffer (``extern __shared__``), which the
+shim gives each block of a cluster.  ``atomicAdd`` on an int is a
+``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence
+and ``__ldcg`` a plain load: one OS thread runs all fibers.  The sources'
+headers (``csrc/*.cuh``) are copied beside them.  Built with
+``-ffp-contract=off``, as nvcc's ``-fmad=false`` keeps every multiply and
+add apart.  The grid's z axis is not emulated
 (``tests/test_torch_reg_kernel_emulated.py`` builds K3 with its own shim).
 """
 
@@ -21,64 +40,209 @@ import pytest
 SHIM = r"""
 #pragma once
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
-#include <thread>
+#include <functional>
+#include <ucontext.h>
 #include <vector>
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx, blockIdx;
-inline std::barrier<>* g_bar;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// the running fiber's indices, set by the scheduler at every switch
+inline uint3 threadIdx, blockIdx;
+namespace emu {
+struct Group { int expected = 0, arrived = 0; std::vector<int> waiting; };
+struct Fiber {
+  ucontext_t ctx;
+  uint3 tid, bid;
+  int block = 0, warp = 0;
+  unsigned shuffles = 0;
+  bool waiting = false, done = false;
+};
+struct Run {
+  ucontext_t sched;
+  std::vector<Fiber> fibers;
+  std::vector<Group> blocks, warps;
+  Group cluster;
+  std::vector<std::vector<unsigned char>> smem;  // dynamic, one a block
+  std::vector<uint32_t> slots;                   // 2 x 32 a warp
+  std::function<void()> body;
+  int cur = 0;
+};
+inline Run* run;
+constexpr size_t kStack = 32 << 10;
+
+inline void release(Group& g) {
+  for (int i : g.waiting) run->fibers[i].waiting = false;
+  g.waiting.clear();
+  g.arrived = 0;
+}
+inline void wait(Group& g) {
+  if (++g.arrived == g.expected) { release(g); return; }
+  const int me = run->cur;
+  g.waiting.push_back(me);
+  run->fibers[me].waiting = true;
+  swapcontext(&run->fibers[me].ctx, &run->sched);
+}
+inline void leave(Group& g) {
+  if (--g.expected > 0 && g.arrived == g.expected) release(g);
+}
+inline void start() {
+  run->body();
+  Fiber& f = run->fibers[run->cur];
+  f.done = true;
+  leave(run->blocks[f.block]);
+  leave(run->warps[f.warp]);
+  leave(run->cluster);
+}
+// runs blocks [b0, b0 + nb) of row by of the grid together, one fiber a
+// thread, until every fiber has returned
+inline void blocks_together(unsigned b0, unsigned nb, unsigned by,
+                            unsigned threads, size_t smem_bytes) {
+  const unsigned warps = (threads + 31) / 32, n = nb * threads;
+  run->fibers.assign(n, Fiber());
+  run->blocks.assign(nb, Group());
+  run->warps.assign(nb * warps, Group());
+  run->cluster = Group();
+  run->cluster.expected = n;
+  run->smem.assign(nb, std::vector<unsigned char>(smem_bytes + 16, 0));
+  run->slots.assign(nb * warps * 64, 0);
+  std::vector<unsigned char> stacks(n * kStack);
+  for (unsigned i = 0; i < n; ++i) {
+    Fiber& f = run->fibers[i];
+    f.block = i / threads;
+    f.warp = f.block * warps + (i % threads) / 32;
+    f.tid = {i % threads, 0, 0};
+    f.bid = {b0 + f.block, by, 0};
+    run->blocks[f.block].expected++;
+    run->warps[f.warp].expected++;
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = stacks.data() + i * kStack;
+    f.ctx.uc_stack.ss_size = kStack;
+    f.ctx.uc_link = &run->sched;
+    makecontext(&f.ctx, start, 0);
+  }
+  for (;;) {
+    bool live = false, ran = false;
+    for (unsigned i = 0; i < n; ++i) {
+      Fiber& f = run->fibers[i];
+      if (f.done) continue;
+      live = true;
+      if (f.waiting) continue;
+      run->cur = i;
+      threadIdx = f.tid;
+      blockIdx = f.bid;
+      swapcontext(&run->sched, &f.ctx);
+      ran = true;
+    }
+    if (!live) return;
+    if (!ran) { std::fprintf(stderr, "emu: deadlock\n"); std::abort(); }
+  }
+}
+inline uint32_t shuffle(uint32_t v, int src_of_lane(int, int), int arg) {
+  Fiber& f = run->fibers[run->cur];
+  const int lane = f.tid.x & 31;
+  uint32_t* s = &run->slots[(f.warp * 2 + (f.shuffles++ & 1)) * 32];
+  s[lane] = v;
+  wait(run->warps[f.warp]);
+  const int src = src_of_lane(lane, arg);
+  return src >= 0 && src < 32 ? s[src] : v;
+}
+inline int xor_lane(int lane, int m) { return lane ^ m; }
+inline int down_lane(int lane, int d) { return lane + d; }
+inline unsigned char* dynamic_smem() { return run->smem[run->fibers[run->cur].block].data(); }
+}  // namespace emu
+
+inline void __syncthreads() {
+  emu::wait(emu::run->blocks[emu::run->fibers[emu::run->cur].block]);
+}
+inline float __shfl_xor_sync(unsigned, float v, int m, int = 32) {
+  uint32_t b; std::memcpy(&b, &v, 4);
+  b = emu::shuffle(b, emu::xor_lane, m);
+  std::memcpy(&v, &b, 4); return v;
+}
+inline float __shfl_down_sync(unsigned, float v, unsigned d, int = 32) {
+  uint32_t b; std::memcpy(&b, &v, 4);
+  b = emu::shuffle(b, emu::down_lane, (int)d);
+  std::memcpy(&v, &b, 4); return v;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu::wait(emu::run->cluster); }
+  unsigned block_rank() const { return emu::run->fibers[emu::run->cur].block; }
+  template <class T> T* map_shared_rank(T* p, unsigned rank) const {
+    unsigned char* mine = emu::dynamic_smem();
+    return reinterpret_cast<T*>(emu::run->smem[rank].data()
+                                + (reinterpret_cast<unsigned char*>(p) - mine));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __cluster_dims__(...)
+#define __align__(n) alignas(n)
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+// a launch: grid.x blocks a row, cluster blocks together (1: one at a time)
 template <class F, class A>
-void emu_launch(F f, dim3 grid, dim3 block, const A& a) {
+void emu_launch(F f, dim3 grid, dim3 block, size_t smem, const A& a,
+                unsigned cluster = 1) {
+  emu::Run r;
+  emu::run = &r;
+  r.body = [&] { f(a); };
   for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(block.x);
-      g_bar = &bar;
-      std::vector<std::thread> ts;
-      for (unsigned tx = 0; tx < block.x; ++tx)
-        ts.emplace_back([&, tx] {
-          blockIdx = {bx, by, 0};
-          threadIdx = {tx, 0, 0};
-          f(a);
-        });
-      for (auto& t : ts) t.join();
-    }
+    for (unsigned bx = 0; bx < grid.x; bx += cluster)
+      emu::blocks_together(bx, cluster, by, block.x, smem);
+  emu::run = nullptr;
 }
 """
-LAUNCH = re.compile(r"(\w+)<<<(.+?), (dim3\(\w+\)), 0, stream_>>>\((\w+)\);")
+LAUNCH = re.compile(r"(\w+)<<<(.+?), (dim3\(\w+\)), (\w+), stream_>>>\((\w+)\);")
+CLUSTER = re.compile(r"__global__ void __cluster_dims__\((\w+), 1, 1\)\s+"
+                     r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(")
+DYNAMIC = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 
 def _for_cpu(text: str) -> str:
+    text = text.replace("#include <cooperative_groups.h>", "")
     return text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
 
 
-def build_for_cpu(source: Path, out_dir: Path, launches: int) -> Path:
+def build_for_cpu(source: Path, out_dir: Path, launches: int,
+                  defines: tuple = ()) -> Path:
     """Build ``source`` (a ``.cu`` file with ``launches`` kernel launches)
     and the headers beside it into a shared library in ``out_dir``;
-    returns its path.  Skips the test where there is no g++."""
+    returns its path.  ``defines``: ``NAME=VALUE`` macros for g++.  Skips
+    the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CPU emulation of the kernels")
-    src, n = LAUNCH.subn(r"emu_launch(\1, \2, \3, \4);", source.read_text())
+    src = source.read_text()
+    clusters = dict((name, size) for size, name in CLUSTER.findall(src))
+
+    def launch(m):
+        extra = f", {clusters[m.group(1)]}" if m.group(1) in clusters else ""
+        return (f"emu_launch({m.group(1)}, {m.group(2)}, {m.group(3)}, "
+                f"{m.group(4)}, {m.group(5)}{extra});")
+    src, n = LAUNCH.subn(launch, src)
     assert n == launches, f"{launches} kernel launches in {source.name}"
+    src = DYNAMIC.sub(r"\1* \2 = reinterpret_cast<\1*>(emu::dynamic_smem());",
+                      src)
     (out_dir / "cuda_shim.h").write_text(SHIM)
     for header in source.parent.glob("*.cuh"):
         (out_dir / header.name).write_text(_for_cpu(header.read_text()))
@@ -86,6 +250,6 @@ def build_for_cpu(source: Path, out_dir: Path, launches: int) -> Path:
     cpp.write_text(_for_cpu(src))
     lib = out_dir / f"lib{source.stem}_cpu.so"
     subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-w", "-o", str(lib), str(cpp)],
-                   check=True)
+                    "-shared", "-w", *(f"-D{d}" for d in defines), "-o",
+                    str(lib), str(cpp)], check=True)
     return lib

@@ -470,17 +470,17 @@ def test_cuda_batched_interval_matches_single_video(cuda_device,
     """A batched interval on the card against each video's single-video
     interval on the card: the card's batched reductions may sum in another
     order, so the JAX package's vmap tolerance (2e-3) and 1 seeds% point;
-    K3 launched once per call for all videos, K1 once per GN iteration
-    for all videos (32 iterations a frame) and K2 once per track_refine
-    step for all videos."""
+    K3 launched once per call for all videos, K1's kernels with one
+    launch for all videos (``gn_kernel.align_launches`` a frame) and K2
+    once per track_refine step for all videos."""
     states = convert.to_port(jax_init_tree, cuda_device)
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
     _, outs = sharded.batched_process_interval(states, videos[:, 1:8], CFG)
     assert reg_kernel.launches == {"do_regularization": 8, "regularize": 1}
-    n_gn = 7 * sum(CFG.max_iters)
-    assert gn_kernel.launches == {"gn_linearize": n_gn, "gn_finish": n_gn}
+    assert gn_kernel.launches == {
+        k: 7 * n for k, n in gn_kernel.align_launches(CFG).items()}
     assert stereo_kernel.launches == {"stereo_observe": 6}
     for v, st in enumerate(sharded.unstack_states(states)):
         _, o, _ = pipeline.process_interval(st, list(videos[v, 1:8]), CFG)

@@ -1,5 +1,7 @@
-"""K1, one Gauss-Newton iteration of the tracker as two CUDA kernels
-(``ops/gn_kernel.py``, ``csrc/gn_kernel.cu``), and its plain twin
+"""K1, the tracker's Gauss-Newton iterations as two CUDA kernels
+(``ops/gn_kernel.py``, ``csrc/gn_kernel.cu``: ``gn_level_cluster``, a
+level in one launch, and ``gn_step``, an iteration a launch with its
+linearize-only and finish-only modes), and its plain twin
 (``track/alignment.py``).
 
 Frames are the port's synthetic room rendered at TEST_CONFIG's 96x128 with
@@ -11,26 +13,31 @@ variance; video v of a batch has its own keyframe pose, holes and motion.
   ``_gn_quantities`` (rtol 1e-4 for H and g, as tests/test_torch_track.py)
   and ``align`` (1e-5 per twist component).
 - The wrappers on CPU tensors run the plain version and launch nothing;
-  the module imports without nvcc; the source holds no atomics.
+  the module imports without nvcc; the source sums no float with
+  atomics, its one atomic an integer ticket a video.
 - The CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``:
-  a ``std::thread`` per CUDA thread, as tests/test_torch_reg_kernel_emulated.py
-  builds K3): K1a's
-  sums against the plain linearization (H within 1e-4 of its largest
-  entry, g_i within 1e-4 sqrt(H_ii E), the energy within 1e-4 relative,
-  the used count exact: float32 sums of ~10^4 terms in another order),
-  K1b against the plain iteration on the same H, g and pose (the pose
-  within 1e-5 per component, iters and freeze flags equal), whole levels
-  and every video of a batch bit-equal to its own call.
+  a fiber per CUDA thread, shuffles and cluster barriers emulated; built
+  with a cluster of 4 blocks of 128 threads, against the card's 8 of
+  512): gn_step's linearization against the plain one (H within 1e-4 of
+  its largest entry, g_i within 1e-4 sqrt(H_ii E), the energy within 1e-4
+  relative, the used count exact: float32 sums of ~10^4 terms in another
+  order), its finish against the plain iteration on the same H, g and
+  pose (the pose within 1e-5 per component, iters and freeze flags
+  equal), whole levels of both kernels at every level, a NaN video and
+  videos that freeze mid-level, every video of a batch bit-equal to its
+  own call, and a repeated call bit-equal to the first (the tickets
+  reset).
 - On a card (``-m cuda``; run there with ``python -m pytest
   tests/test_torch_gn_kernel.py -m cuda --noconftest``, since that
   machine has no jax: this file imports the JAX package only in a
-  fixture) the same checks on the kernels themselves, and 2 launches per
-  GN iteration.
+  fixture) the same checks on the kernels themselves, and the launches
+  a level: one gn_level_cluster launch, or one gn_step an iteration.
 """
 
 import ctypes
 import math
 import re
+from pathlib import Path
 
 import cuda_emulation
 import numpy as np
@@ -40,7 +47,8 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch.config import TEST_CONFIG
 from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
 from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
-from egomotion_with_local_loop_closures_tpu_torch.ops import gn_kernel
+from egomotion_with_local_loop_closures_tpu_torch.ops import (
+    gn_kernel, gn_reference)
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
 from egomotion_with_local_loop_closures_tpu_torch.utils import synthetic
 
@@ -48,9 +56,10 @@ torch.set_num_threads(1)
 
 CFG = TEST_CONFIG
 # H against its largest entry, g_i against sqrt(H_ii E), the energy
-# relative; the pose after one K1b or after a level, per component
+# relative; the pose after one finish or after a level, per component
 SUM_TOL, POSE_TOL = 1e-4, 1e-5
 MOTION = np.asarray([0.006, -0.004, 0.003, 0.015, -0.01, 0.008], np.float32)
+TERM_W = torch.as_tensor(CFG.termination_weights)
 
 
 def make_video(v):
@@ -107,12 +116,24 @@ def start_poses(n):
                     ).astype(np.float32)
 
 
+def trajectories(kf, cur, pose0, level, n_iters):
+    """The plain float32 iterations of a level on the planes' device and
+    their float64 evaluation (``gn_reference.plain_trajectory``)."""
+    f64 = [type(x)(*(t.double() for t in x)) for x in (kf, cur)]
+    term_w = TERM_W.to(pose0.device)
+    return (gn_reference.plain_trajectory(kf, cur, pose0, level, CFG,
+                                          n_iters, term_w),
+            gn_reference.plain_trajectory(*f64, pose0.double(), level, CFG,
+                                          n_iters, term_w.double()))
+
+
 def assert_bits(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 def assert_sums_close(got, want):
-    """K1a's (H, g, energy, count) against the plain linearization's."""
+    """A kernel's (H, g, energy, count) against the plain
+    linearization's."""
     Hg, gg, eg, ng = got
     Hw, gw, ew, nw = want
     scale = Hw.abs().amax(dim=(-2, -1), keepdim=True)
@@ -219,17 +240,46 @@ def test_level_matches_jax_gn_level(videos, jax_mods):
 
 def test_module_imports_without_nvcc_and_source_has_no_atomics():
     """The module imported above without building anything; the kernels
-    reduce in a fixed order, with no atomics of any kind."""
+    sum no float with atomics: the one atomic of the source is gn_step's
+    integer ticket, one counter a video, reset by the block that takes
+    the last one."""
     assert gn_kernel._lib is None
     src = gn_kernel.SOURCE.read_text()
     code = re.sub(r"//[^\n]*", "", src)
-    assert "atomic" not in code.lower() and "atomicAdd" not in src
-    assert src.count("__global__") == 2
+    assert re.findall(r"atomic\w*", code) == ["atomicAdd"]
+    assert "atomicAdd(&a.tickets[v], 1)" in code
+    assert "a.tickets[v] = 0;" in code
+    assert code.count("__global__") == 2
     assert gn_kernel.wrapper_of(
-        "_ZN12_GLOBAL__N_112gn_linearizeENS_7LinArgsE") == "gn_linearize"
+        "_ZN12_GLOBAL__N_116gn_level_clusterENS_9LevelArgsE") == \
+        "gn_level_cluster"
     assert gn_kernel.wrapper_of(
-        "_ZN12_GLOBAL__N_19gn_finishENS_7FinArgsE") == "gn_finish"
+        "_ZN12_GLOBAL__N_17gn_stepENS_8StepArgsE") == "gn_step"
     assert gn_kernel.wrapper_of("_Z10reg_kernelILb1ELb0EEv4Args") is None
+
+
+def test_cluster_shape_fits_the_card_and_levels_take_their_kernel():
+    """The cluster is a portable one (at most 8 blocks) of whole warps
+    within a block's 1,024 threads; at 270x480 levels 0 and 1 run
+    gn_step and levels 2 and 3 gn_level_cluster; at TEST_CONFIG's 96x128
+    only level 0 runs gn_step."""
+    src = gn_kernel.SOURCE.read_text()
+    shape = dict(re.findall(r"#define (ELLC_CLUSTER_\w+) (\d+)", src))
+    blocks, threads = (int(shape[k]) for k in ("ELLC_CLUSTER_BLOCKS",
+                                               "ELLC_CLUSTER_THREADS"))
+    assert 1 <= blocks <= 8 and threads % 32 == 0 and threads <= 1024
+    from egomotion_with_local_loop_closures_tpu_torch.config import (
+        ELLCConfig)
+    cfg = ELLCConfig()
+    assert [gn_kernel.kernel_for(*cfg.level_shape(lv))
+            for lv in range(cfg.num_levels)] == [
+        "gn_step", "gn_step", "gn_level_cluster", "gn_level_cluster"]
+    assert gn_kernel.align_launches(cfg) == {"gn_level_cluster": 2,
+                                             "gn_step": 4 + 7}
+    assert gn_kernel.align_launches(cfg, cfg.max_iters_replay) == {
+        "gn_level_cluster": 2, "gn_step": 5 + 1}
+    assert gn_kernel.align_launches(CFG) == {"gn_level_cluster": 3,
+                                             "gn_step": 4}
 
 
 def test_cpu_tensors_take_the_plain_path(videos):
@@ -250,33 +300,55 @@ def test_cpu_tensors_take_the_plain_path(videos):
     lvl = gn_kernel.gn_level(kf, cur, poses, 2, CFG, 1)
     assert_bits(st.pose, lvl[0])
     assert_bits(st.iters, lvl[2])
-    assert gn_kernel.launches == {"gn_linearize": 0, "gn_finish": 0}
+    for kernel in gn_kernel.KERNELS:
+        run = gn_kernel.run_level(kf, cur, poses, intr, CFG, 1, kernel)
+        assert_bits(run.pose, lvl[0])
+    assert gn_kernel.launches == {"gn_level_cluster": 0, "gn_step": 0}
     assert gn_kernel._lib is None
 
 
 # --- the CUDA source built for the CPU ---
 
+EMULATED_CLUSTER = ("ELLC_CLUSTER_BLOCKS=4", "ELLC_CLUSTER_THREADS=128")
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """K1's library built for the CPU, and its two kernels as ``lin`` and
-    ``fin`` functions of ``gn_kernel.iterate``'s signature."""
+    """K1's library built for the CPU (a cluster of 4 blocks of 128
+    threads), as ``lin`` and ``fin`` functions of ``gn_kernel.iterate``'s
+    signature (gn_step's two single modes) and ``level``, a whole level of
+    either kernel with a workspace of its own unless one is given."""
     lib = gn_kernel.bind(ctypes.CDLL(str(cuda_emulation.build_for_cpu(
-        gn_kernel.SOURCE, tmp_path_factory.mktemp("gn_kernel_cpu"), 2))))
+        gn_kernel.SOURCE, tmp_path_factory.mktemp("gn_kernel_cpu"), 2,
+        EMULATED_CLUSTER))))
 
     def lin(kf, cur, pose, intr, cfg, y_offset=0, done=None):
-        return gn_kernel._launch_linearize(lib, kf, cur, pose, intr, cfg,
-                                           y_offset, done, 0)
+        h, w = kf.image.shape[-2:]
+        partials = torch.empty(pose.shape[:-1] + (gn_kernel.blocks(h, w),
+                                                  gn_kernel.SUMS))
+        gn_kernel._launch_step(lib, gn_kernel._LINEARIZE, done is None, pose,
+                               gn_kernel.GNState(*(None,) * 5, done),
+                               partials, cfg, 0, kf, cur, intr, y_offset)
+        return partials
 
     def fin(partials, pose_in, st, cfg, first):
-        return gn_kernel._launch_finish(lib, partials, pose_in, st, cfg,
-                                        first, 0)
-    return lin, fin
+        gn_kernel._launch_step(lib, gn_kernel._FINISH, first, pose_in, st,
+                               partials, cfg, 0)
+        return st
+
+    def level(kf, cur, pose0, level_, n_iters, kernel, ws=None):
+        if ws is None:
+            ws = gn_kernel.make_workspace(math.prod(pose0.shape[:-1]), "cpu")
+        return gn_kernel.level_launches(lib, ws, kf, cur, pose0,
+                                        CFG.level_intrinsics(level_), CFG,
+                                        n_iters, kernel, 0)
+    return lin, fin, level
 
 
 @pytest.mark.parametrize("level", [0, 2])
 @pytest.mark.parametrize("nvid", [1, 2])
 def test_emulated_linearize_matches_plain(videos, emulated, level, nvid):
-    lin, _ = emulated
+    lin, _, _ = emulated
     vids = videos[0] if nvid == 1 else videos[:nvid]
     kf, cur = levels(vids, level)
     pose = torch.as_tensor(start_poses(nvid)[0] if nvid == 1
@@ -292,7 +364,7 @@ def test_emulated_linearize_matches_plain(videos, emulated, level, nvid):
 def test_emulated_linearize_row_block_matches_plain(videos, emulated):
     """``y_offset``: rows 17..47 of level 1's template as those rows of
     the whole template, against the whole current level."""
-    lin, _ = emulated
+    lin, _, _ = emulated
     kf, cur = levels(videos[1], 1)
     rows = slice(17, 48)
     block = alignment.KeyframeLevel(*(t[rows].contiguous() for t in kf))
@@ -304,11 +376,11 @@ def test_emulated_linearize_row_block_matches_plain(videos, emulated):
 
 
 def test_emulated_finish_matches_plain_on_the_same_system(videos, emulated):
-    """K1b and the plain body on identical sums and poses, three videos:
-    a first iteration, then one from a state where video 1 is frozen,
-    and a video whose H is zero (no depth): its step is zeroed, so its
-    pose is composed with a zero update and it freezes."""
-    lin, fin = emulated
+    """The finish alone and the plain body on identical sums and poses,
+    three videos: a first iteration, then one from a state where video 1
+    is frozen, and a video whose H is zero (no depth): its step is
+    zeroed, so its pose is composed with a zero update and it freezes."""
+    lin, fin, _ = emulated
     kf, cur = levels(videos, 2)
     kf = kf._replace(depth=torch.where(torch.arange(3)[:, None, None] == 2,
                                        0.0, kf.depth))
@@ -344,56 +416,149 @@ def test_emulated_finish_matches_plain_on_the_same_system(videos, emulated):
     assert got2.iters.tolist() == [2, 1, 1]
 
 
+def test_plain_trajectory_gives_the_plain_level_and_the_rule_holds_it(
+        videos):
+    """``gn_reference``: the unfrozen plain iterations give the plain
+    level (alignment.gn_level on the CPU) bit for bit, a NaN video
+    included; ``level_agreement`` takes the plain level itself, and the
+    plain state one iteration later for video 2, whose plain stop is at
+    a metric within METRIC_TOL of 1, and refuses one that stops two
+    iterations late, a pose moved by 2 POSE_TOL, a used count off by one,
+    an energy or a termination metric off by twice its tolerance."""
+    level, n_iters = 2, CFG.max_iters[2]
+    kf, cur = levels(videos, level)
+    pose0 = torch.as_tensor(start_poses(3))
+    pose0[1] = float("nan")
+    traj, traj64 = trajectories(kf, cur, pose0, level, n_iters)
+    want = traj.level()
+    pose, wp, iters, (energy, valid) = alignment.gn_level(
+        kf, cur, pose0, level, CFG, n_iters)
+    for a, b in zip((pose, wp, iters, energy, valid), want):
+        assert_bits(a, b)
+    assert want.iters.tolist()[1] == 1 and torch.isnan(want.pose[1]).all()
+    assert gn_reference.level_agreement(want, traj, traj64, level,
+                                        POSE_TOL) == (True, [])
+    k = int(want.iters[2])
+    assert k < n_iters and abs(float(traj.wp[k - 1, 2]) - 1.0) <= \
+        gn_reference.METRIC_TOL[level]
+    agrees, lines = gn_reference.level_agreement(
+        traj.after(want.iters + torch.as_tensor([0, 0, 1])), traj, traj64,
+        level, POSE_TOL)
+    assert agrees and len(lines) == 1 and lines[0].startswith("video 2")
+    assert int(want.iters[0]) + 2 <= n_iters
+    late = want._replace(iters=want.iters + torch.as_tensor([2, 0, 0],
+                                                            dtype=torch.int32))
+    moved = want._replace(pose=want.pose + torch.as_tensor(
+        [2 * POSE_TOL, 0, 0, 0, 0, 0])[None] * torch.as_tensor(
+            [[1.0], [0.0], [0.0]]))
+    off = 2.0 * gn_reference.METRIC_TOL[level] * want.wp_last.abs().clamp(
+        min=1.0)
+    for bad in (late, moved, want._replace(valid=want.valid + 1),
+                want._replace(energy=want.energy * (
+                    1.0 + 2.0 * gn_reference.ENERGY_TOL)),
+                want._replace(wp_last=want.wp_last + off)):
+        agrees, lines = gn_reference.level_agreement(
+            bad, traj, traj64, level, POSE_TOL)
+        assert not agrees and lines
+
+
 @pytest.mark.parametrize("level", [0, 1, 2, 3])
 def test_emulated_level_matches_plain(videos, emulated, level):
-    """A whole level (its max_iters iterations) for each video, against
-    the plain level and a float64 evaluation of it: the same iteration
-    counts and used counts, and the pose within POSE_TOL of the plain
-    one (the energy within SUM_TOL relative), or, where the plain float32
-    result itself lies farther from float64 (level 3 of video 2 stops at
-    its 12th iteration unconverged, its pose 3.3e-5 from float64), within
-    twice the plain result's distance from float64."""
-    lin, fin = emulated
+    """A whole level (its max_iters iterations) of each kernel for the
+    three videos in one call, against the plain level and a float64
+    evaluation of it: the same iteration counts, freeze flags and used
+    counts, the pose within POSE_TOL of the plain one and the energy
+    within SUM_TOL relative, or, where the plain float32 result itself
+    lies farther from float64 (level 3 of video 2 stops at its 12th
+    iteration unconverged, its pose 3.3e-5 from float64), within twice the
+    plain result's distance from float64; the termination metric within
+    ``gn_reference.METRIC_TOL[level]`` of the larger of the float64
+    metric and 1, or as near float64.  No video parts from the plain stop
+    here (``level_agreement`` would allow it only where the plain metric
+    lies within METRIC_TOL[level] of 1)."""
+    _, _, run = emulated
     n_iters = CFG.max_iters[level]
-    for v, vid in enumerate(videos):
-        kf, cur = levels(vid, level)
-        pose0 = torch.as_tensor(start_poses(3)[v])
-        st = gn_kernel.iterate(kf, cur, pose0, CFG.level_intrinsics(level),
-                               CFG, n_iters, lin, fin)
-        pose, wp, iters, (energy, valid) = alignment.gn_level(
-            kf, cur, pose0, level, CFG, n_iters)
-        pose64, _, _, (energy64, _) = alignment.gn_level(
-            alignment.KeyframeLevel(*(t.double() for t in kf)),
-            alignment.CurrentLevel(*(t.double() for t in cur)),
-            pose0.double(), level, CFG, n_iters)
-        for got, want, want64, tol in ((st.pose, pose, pose64, POSE_TOL),
-                                       (st.energy, energy, energy64,
-                                        SUM_TOL * float(energy))):
-            err = float((got.double() - want64).abs().max())
-            plain_err = float((want.double() - want64).abs().max())
-            assert (float((got - want).abs().max()) <= tol
-                    or err <= 2.0 * plain_err), (v, err, plain_err)
-        assert int(st.iters) == int(iters) and float(st.valid) == float(valid)
+    kf, cur = levels(videos, level)
+    pose0 = torch.as_tensor(start_poses(3))
+    traj, traj64 = trajectories(kf, cur, pose0, level, n_iters)
+    plain = traj.level()
+    for kernel in gn_kernel.KERNELS:
+        st = run(kf, cur, pose0, level, n_iters, kernel)
+        assert gn_reference.level_agreement(st, traj, traj64, level,
+                                            POSE_TOL) == (True, []), kernel
+        assert torch.equal(st.iters, plain.iters)
+        assert torch.equal(st.done, plain.done)
+        assert torch.equal(st.valid, plain.valid)
+        # the energy as before the rule: within SUM_TOL relative, or no
+        # farther from float64 than twice the plain energy
+        e64 = traj64.level().energy
+        err = (st.energy.double() - e64).abs()
+        plain_err = (plain.energy.double() - e64).abs()
+        assert (((st.energy - plain.energy).abs()
+                 <= SUM_TOL * plain.energy.abs())
+                | (err <= 2.0 * plain_err)).all(), kernel
+
+
+@pytest.mark.parametrize("kernel", ["gn_level_cluster", "gn_step"])
+def test_emulated_level_freezes_a_nan_video_and_one_mid_level(
+        videos, emulated, kernel):
+    """Level 1 of a NaN video, a video that converges after a few
+    iterations, and one that starts at its solution: the NaN video fails
+    its first step (NaN H, so a zeroed step and a frozen NaN pose), and
+    each video keeps the values of its last live iteration, as the plain
+    level does."""
+    _, _, run = emulated
+    level, n_iters = 1, CFG.max_iters[1]
+    kf, cur = levels([videos[0], videos[1], videos[2]], level)
+    pose0 = torch.as_tensor(start_poses(3))
+    pose0[0] = float("nan")
+    pose0[2] = torch.as_tensor(alignment.gn_level(
+        *levels(videos[2], level), pose0[2], level, CFG, n_iters)[0])
+    traj, traj64 = trajectories(kf, cur, pose0, level, n_iters)
+    plain = traj.level()
+    st = run(kf, cur, pose0, level, n_iters, kernel)
+    assert plain.iters.tolist()[0] == 1
+    assert 1 < plain.iters.tolist()[1] < n_iters
+    assert st.iters.tolist()[0] == 1 and st.done.tolist() == [1, 1, 1]
+    assert torch.isnan(st.pose[0]).all() and torch.isnan(plain.pose[0]).all()
+    assert gn_reference.level_agreement(st, traj, traj64, level,
+                                        POSE_TOL) == (True, [])
+    assert torch.equal(st.iters, plain.iters)
+    assert torch.equal(st.valid, plain.valid)
 
 
 def test_emulated_videos_equal_their_own_calls_bit_for_bit(videos, emulated):
-    """Three videos and a NaN one in one call of each kernel per
-    iteration: every output of every video equals its V = 1 call's."""
-    lin, fin = emulated
-    level = 2
+    """Three videos and a NaN one in one call, of each kernel and of the
+    two single modes: every output of every video equals its V = 1
+    call's; a second identical call equals the first (gn_step's tickets
+    were reset to 0)."""
+    lin, fin, run = emulated
     vids = videos + [videos[1]]
     poses = torch.as_tensor(np.concatenate([start_poses(3), np.full(
         (1, 6), np.nan, np.float32)]))
-    intr = CFG.level_intrinsics(level)
-    kf, cur = levels(vids, level)
-    batch = gn_kernel.iterate(kf, cur, poses, intr, CFG, 5, lin, fin)
-    assert torch.isnan(batch.pose[3]).all() and int(batch.done[3]) == 1
-    for v, vid in enumerate(vids):
-        kf1, cur1 = levels([vid], level)
-        alone = gn_kernel.iterate(kf1, cur1, poses[v:v + 1], intr, CFG, 5,
-                                  lin, fin)
-        for a, b in zip(alone, batch):
-            assert_bits(a[0], b[v])
+    for level in (0, 2):
+        kf, cur = levels(vids, level)
+        intr = CFG.level_intrinsics(level)
+        outs = {"modes": gn_kernel.iterate(kf, cur, poses, intr, CFG, 5,
+                                           lin, fin)}
+        ws = gn_kernel.make_workspace(4, "cpu")
+        for kernel in gn_kernel.KERNELS:
+            outs[kernel] = run(kf, cur, poses, level, 5, kernel, ws)
+            again = run(kf, cur, poses, level, 5, kernel, ws)
+            assert ws.tickets.tolist() == [0, 0, 0, 0]
+            for a, b in zip(outs[kernel], again):
+                assert_bits(a, b)
+        for name, batch in outs.items():
+            assert torch.isnan(batch.pose[3]).all()
+            assert int(batch.done[3]) == 1
+            for v, vid in enumerate(vids):
+                kf1, cur1 = levels([vid], level)
+                alone = (gn_kernel.iterate(kf1, cur1, poses[v:v + 1], intr,
+                                           CFG, 5, lin, fin)
+                         if name == "modes" else
+                         run(kf1, cur1, poses[v:v + 1], level, 5, name))
+                for a, b in zip(alone, batch):
+                    assert_bits(a[0], b[v])
 
 
 # --- on the card ---
@@ -417,7 +582,7 @@ def test_cuda_linearize_matches_plain(videos, cuda_device, level, nvid):
     gn_kernel.reset_launches()
     got = gn_kernel.gn_quantities(kf, cur, pose, intr, CFG)
     torch.cuda.synchronize()
-    assert gn_kernel.launches == {"gn_linearize": 1, "gn_finish": 0}
+    assert gn_kernel.launches == {"gn_level_cluster": 0, "gn_step": 1}
     assert_sums_close(got, alignment._gn_quantities(kf, cur, pose, intr,
                                                     CFG))
 
@@ -443,31 +608,57 @@ def test_cuda_finish_matches_plain_on_the_same_system(videos, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
 def test_cuda_level_two_launches_an_iteration_and_videos_bit_equal(
-        videos, cuda_device):
-    """V = 8 (the three videos repeated) in one call: two launches an
-    iteration, each video bit-equal to its V = 1 call, and within 1e-5 of
-    the plain level."""
-    level = 1
+        videos, cuda_device, level):
+    """V = 8 (the three videos repeated) in one call of each kernel at
+    every level: one gn_level_cluster launch a level, or one gn_step
+    launch an iteration; each video bit-equal to its V = 1 call and a
+    repeated call bit-equal to the first; the level held to the plain
+    level on the card by ``gn_reference.level_agreement``, and at level 1
+    every video that keeps the plain stop within POSE_TOL of the plain
+    level on the CPU; gn_level takes the kernel ``kernel_for`` names."""
     vids = [videos[v % 3] for v in range(8)]
     poses = torch.as_tensor(np.stack([start_poses(3)[v % 3]
                                       for v in range(8)]),
                             device=cuda_device)
     kf, cur = levels(vids, level, cuda_device)
     n_iters = CFG.max_iters[level]
+    intr = CFG.level_intrinsics(level)
+    cpu = [type(x)(*(t.cpu() for t in x)) for x in (kf, cur)]
+    traj, traj64 = trajectories(kf, cur, poses, level, n_iters)
+    want = gn_reference.plain_trajectory(*cpu, poses.cpu(), level, CFG,
+                                         n_iters, TERM_W).level()
+    for kernel in gn_kernel.KERNELS:
+        gn_kernel.reset_launches()
+        batch = gn_kernel.run_level(kf, cur, poses, intr, CFG, n_iters,
+                                    kernel)
+        again = gn_kernel.run_level(kf, cur, poses, intr, CFG, n_iters,
+                                    kernel)
+        torch.cuda.synchronize()
+        per_call = 1 if kernel == "gn_level_cluster" else n_iters
+        assert gn_kernel.launches[kernel] == 2 * per_call
+        assert sum(gn_kernel.launches.values()) == 2 * per_call
+        for a, b in zip(batch, again):
+            assert_bits(a, b)
+        agrees, lines = gn_reference.level_agreement(
+            batch, traj, traj64, level, POSE_TOL)
+        assert agrees, (kernel, lines)
+        if level == 1:
+            same = (batch.iters.cpu() == want.iters) & (
+                batch.done.cpu() == want.done)
+            torch.testing.assert_close(batch.pose.cpu()[same],
+                                       want.pose[same], rtol=0,
+                                       atol=POSE_TOL)
+        for v in range(8):
+            kf1, cur1 = levels(vids[v], level, cuda_device)
+            alone = gn_kernel.run_level(kf1, cur1, poses[v], intr, CFG,
+                                        n_iters, kernel)
+            for a, b in zip(alone, batch):
+                assert_bits(a, b[v])
+    h, w = kf.image.shape[-2:]
     gn_kernel.reset_launches()
-    batch = alignment.gn_level(kf, cur, poses, level, CFG, n_iters)
-    torch.cuda.synchronize()
-    assert gn_kernel.launches == {"gn_linearize": n_iters,
-                                  "gn_finish": n_iters}
-    want = alignment.gn_level(*(type(x)(*(t.cpu() for t in x))
-                                for x in (kf, cur)), poses.cpu(), level, CFG,
-                              n_iters)
-    torch.testing.assert_close(batch[0].cpu(), want[0], rtol=0,
-                               atol=POSE_TOL)
-    for v in range(8):
-        kf1, cur1 = levels(vids[v], level, cuda_device)
-        alone = alignment.gn_level(kf1, cur1, poses[v], level, CFG, n_iters)
-        for a, b in zip((*alone[:3], *alone[3]),
-                        (*batch[:3], *batch[3])):
-            assert_bits(a, b[v])
+    alignment.gn_level(kf, cur, poses, level, CFG, n_iters)
+    kernel = gn_kernel.kernel_for(h, w)
+    assert gn_kernel.launches[kernel] == (
+        1 if kernel == "gn_level_cluster" else n_iters)

@@ -11,7 +11,9 @@ twice after a warm-up:
    per-stage wall time per tracked frame;
 2. as users run it, every frame step a graph replay, under
    ``torch.profiler``: the device's busy time (sum of kernel times)
-   against the wall time, and the kernels that took most of it.
+   against the wall time, the kernels that took most of it, K1's time
+   and launches a frame (its kernels found by name), and each captured
+   graph's kernel nodes (``runtime/graphs.py::stats``).
 
 Usage (on the card): python tools/profile_port_gn.py [--frames N] [--out F]
 Writes the report as JSON to F (default profile_port_gn.json) and prints it.
@@ -23,6 +25,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,7 +50,7 @@ def main(argv=None) -> int:
         propagate, stereo)
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
-        pipeline, runner)
+        graphs, pipeline, runner)
     from egomotion_with_local_loop_closures_tpu_torch.track import alignment
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,6 +118,10 @@ def main(argv=None) -> int:
     busy_us = sum(e.device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.device_time_total)[:12]
     launches = sum(e.count for e in events)
+    # K1's kernels by name: the two-kernel version's and the level and
+    # step kernels that replaced them
+    k1 = [e for e in events
+          if re.search(r"gn_(linearize|finish|level_cluster|step)\b", e.key)]
 
     report = {
         "gpu": gpu, "frames_tracked": n,
@@ -124,6 +131,13 @@ def main(argv=None) -> int:
         "device_busy_ms_per_frame": busy_us / 1e3 / n,
         "device_busy_share": busy_us / 1e6 / wall_prof,
         "device_kernel_launches_per_frame": launches / n,
+        "k1_ms_per_frame": sum(e.device_time_total for e in k1) / 1e3 / n,
+        "k1_launches_per_frame": sum(e.count for e in k1) / n,
+        "graph_kernel_nodes": [
+            {"step": r["step"], "replay": r["replay"], "lead": r["lead"],
+             "window": pipeline._needs_window(r["cfg"]),
+             "nodes": r["nodes"].get("kernel", 0), "k1": r["k1"]}
+            for r in graphs.stats()],
         "top_device_ops": [{"name": e.key[:90],
                             "ms_per_frame": e.device_time_total / 1e3 / n,
                             "calls_per_frame": e.count / n} for e in top],

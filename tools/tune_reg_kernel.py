@@ -74,6 +74,7 @@ def main() -> int:
         FIELDS)
     from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
     from egomotion_with_local_loop_closures_tpu_torch.runtime import pipeline
+    from egomotion_with_local_loop_closures_tpu_torch.utils import card_timing
 
     dev = torch.device("cuda")
     gpu = chip_smoke.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,7 +137,7 @@ def main() -> int:
             fn()                                       # warm-up
         times = {k: [] for k in fns}
         for k in order:
-            times[k].append(chip_smoke.device_ms(fns[k], 200)[0])
+            times[k].append(card_timing.device_ms(fns[k], 200)[0])
         for k, ts in times.items():
             print(f"{name} at {H}x{W}, tile height {k}: "
                   f"{sum(ts) / len(ts):.5f} ms per "
