@@ -58,7 +58,11 @@ Phases, each announced on its own line:
    planes (3b's images, phase 3's seeded state or no hypothesis) and phase
    3's keyframe with the next frame of run_gn at its tracked pose, from no
    hypothesis (the create path), from the pipeline's state (the update
-   path) and from that state with a quarter of its variances near max_var.
+   path), from that state with a quarter of its variances near max_var,
+   and at the kernel's most steps, 64, with a 70-pixel crop (some walks
+   must pass 32 steps); and the seeded planes from no hypothesis with the
+   pose's translation eight times over (segments clamped at the border:
+   some walks must end within a pixel of the border line).
    Each video must equal the plain twin bit for bit in every output plane
    (NaN equal to NaN), its counts exactly; each video of an eight-video
    call bit-equal to its own call; the plain twin's codes and EKF branches
@@ -74,7 +78,10 @@ Phases, each announced on its own line:
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
-   the same frame and keyframe ids, frames/s and reads of each turn;
+   the same frame and keyframe ids, frames/s and reads of each turn.
+   Before those turns, the same run once more with CUDA events around
+   every step (no profiler): the card's time inside and between steps
+   beside a track_refine graph replayed alone, with the host ahead;
 5. golden: the first 17 frames against the JAX package's output
    (tests/data/port_golden_run_gn.json, written by
    tools/make_port_golden.py): max |pose component difference| <= 1e-3
@@ -178,7 +185,9 @@ Phases, each announced on its own line:
    profile's 24,475 launches a frame before K1, its K3, K1 and K2 nodes
    (found by name) and its warm-up's launches, its capture and
    instantiate seconds and its pool's bytes, and GN frames/s graphed
-   beside eager over the same 16 frames, in turns.
+   beside eager over the same 16 frames, in turns; then the device-idle
+   gaps of one more graphed loop over them (CUDA events around every
+   step, no profiler) beside a track_refine graph replayed alone.
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
@@ -346,6 +355,9 @@ K2_STEPS = {"gn_run_sequence": 112, "lc_bootstrap": 69, "lc_mode": 250,
 # config value multiplications by the float32 reciprocal, as in the
 # kernel), so every output plane must be bit-equal; eight videos in one call
 K2_VIDEOS = 8
+# the kernel's most steps (ops/stereo_kernel.py MAX_STEPS): phase 3c runs
+# a case at it, with a crop long enough that walks reach past 32 steps
+K2_MAX_STEPS, K2_LONG_CROP = 64, 70.0
 # K2's float32 operations, counted by hand from csrc/stereo_kernel.cu (each
 # add, sub, mul, div, sqrt, abs, floor, ceil, min, max and float compare
 # one): the gates and epipolar direction of every pixel 32; the search band
@@ -887,6 +899,119 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+def k2_walks(args, cfg, branches):
+    """(walked pixels, the longest walk in steps, walked pixels whose
+    segment's near end lies within a pixel of the border line,
+    sample_point_to_border from an edge, where the segment is clamped; one
+    clamped onto the line itself is out, code -1): the plain twin's
+    decisions and segments on ``args``."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth import stereo
+    from egomotion_with_local_loop_closures_tpu_torch.geom import camera
+    st, kf, *_, pose = args
+    H, W = kf.shape[-2:]
+    walked = branches["run"] & ((branches["code"] == 0)
+                                | (branches["code"] == -2)
+                                | (branches["code"] == -3))
+    # observe's search band and segments, as depth/stereo.py::_observe
+    x, y = camera.pixel_grid(H, W, device=kf.device)
+    t_kc = stereo._pose_blocks(pose, cfg).t_kf_from_cur
+    epxn, epyn, _ = stereo.epl_direction(kf, t_kc, cfg)
+    sv = stereo._sqrt(torch.clamp_min(st.var_smoothed, 0.0))
+    ids = st.idepth_smoothed
+    min_id = torch.where(st.valid, torch.clamp_min(
+        ids - sv * cfg.stereo_epl_var_fac, 0.0), 0.0)
+    max_id = torch.where(st.valid, torch.clamp_max(
+        ids + sv * cfg.stereo_epl_var_fac, 1.0 / cfg.min_depth),
+        1.0 / cfg.min_depth)
+    prior = torch.where(st.valid, ids, 1.0)
+    seg = stereo._segment_setup(x, y, epxn, epyn, min_id, prior, max_id,
+                                pose, H, W, cfg)
+    b = cfg.sample_point_to_border
+    at = torch.zeros_like(walked)
+    for v, lim in ((seg.pclose_x, (b, W - b)), (seg.pclose_y, (b, H - b))):
+        for edge in lim:
+            at |= (v - edge).abs() < 1.0
+    steps = branches["steps"][walked]
+    return (int(walked.sum()), int(steps.max()) if steps.numel() else 0,
+            int((walked & at).sum()))
+
+
+def step_gaps(run):
+    """Device-idle gaps between frame steps: a CUDA event before and after
+    every ``pipeline.track_refine_step`` and ``keyframe_step`` call while
+    ``run()`` runs, no profiler.  Returns (steps, ms from the first step's
+    start to the last one's end on the card, ms inside steps, host
+    seconds of run())."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.runtime import pipeline
+    events = []
+
+    def timed(step):
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+    steps = pipeline.track_refine_step, pipeline.keyframe_step
+    pipeline.track_refine_step, pipeline.keyframe_step = map(timed, steps)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.track_refine_step, pipeline.keyframe_step = steps
+    inside = sum(s.elapsed_time(e) for s, e in events)
+    return (len(events), events[0][0].elapsed_time(events[-1][1]), inside,
+            wall)
+
+
+def replay_ms(graph, reps=50):
+    """The card's time for one replay of a captured graph, the host ahead
+    (a spin kernel holds the stream while the host queues the replays)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(100_000_000)
+    ev[1].record()
+    for _ in range(reps):
+        graph.replay()
+    ev[2].record()
+    ev[2].synchronize()
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def track_graph():
+    """The captured graph of a one-video track_refine step (not a
+    replay)."""
+    from egomotion_with_local_loop_closures_tpu_torch.runtime import (
+        graphs, pipeline)
+    for (fn, (_, replay, *_)), g in graphs._graphs.items():
+        if fn is pipeline._track_refine_step and g.lead == () and not replay:
+            return g.graph
+    raise RuntimeError("no one-video track_refine graph captured")
+
+
+def print_gaps(label, gaps, frames, step_ms, gpu):
+    """One line of step_gaps' reading beside a step graph's replay alone."""
+    n, span, inside, wall = gaps
+    print(f"idle gaps, {label}: {n} steps, {span:.3f} ms on the card from "
+          f"the first step's start to the last one's end, {inside:.3f} ms "
+          f"inside steps, {span - inside:.3f} ms between them "
+          f"({100 * (span - inside) / span:.1f} % of the span); host "
+          f"{1e3 * wall / frames:.4f} ms a frame; a track_refine graph "
+          f"replayed alone, the host ahead, {step_ms:.4f} ms of device "
+          f"time: {100 * step_ms * n / (1e3 * wall):.1f} % of the host's "
+          f"wall if every step took that; on {gpu}")
+
+
 def k2_work(args, cfg, branches):
     """(compulsory bytes, float32 operations on this data) of one K2 call
     on ``args``, from the plain twin's decisions: every pixel's gates, the
@@ -907,7 +1032,8 @@ def k2_work(args, cfg, branches):
 
 def k2_phase(cases, cfg, gpu):
     """Phase 3c: K2 against its plain twin on ``cases``, each (label,
-    observe's arguments, timed), for one video and for K2_VIDEOS (see
+    observe's arguments, timed[, its own config]), for one video and for
+    K2_VIDEOS (see
     k2_videos): each video bit-equal to the twin, its counts equal, and,
     for K2_VIDEOS, bit-equal to its own call.  Returns the worst (pixels
     not bit-equal in a video, |float difference|),
@@ -923,12 +1049,23 @@ def k2_phase(cases, cfg, gpu):
                     "inconsistent", "u_success", "nf_kill")
     worst = [0, 0.0]
     branch_counts, timed = {}, {}
-    for label, args0, is_timed in cases:
+    for label, args0, is_timed, *case_cfg in cases:
+        cfg_c = case_cfg[0] if case_cfg else cfg
+        walks = k2_walks(args0, cfg_c, stereo.observe_branches(*args0, cfg_c))
+        print(f"K2 {label}: the plain twin's walked pixels {walks[0]}, "
+              f"longest walk {walks[1]} of {cfg_c.stereo_max_steps} steps, "
+              f"walked pixels with the segment clamped at the border "
+              f"{walks[2]}")
+        if "border" in label:
+            check(walks[2] > 0, f"K2 {label}: some walks end at the border")
+        if cfg_c.stereo_max_steps == K2_MAX_STEPS:
+            check(walks[1] > 32, f"K2 {label}: some walks take a lane's "
+                  f"second step (longest {walks[1]})")
         for V in (1, K2_VIDEOS):
             args = k2_videos(args0, V)
-            got = stereo_kernel.observe(*args, cfg)
-            want = stereo.plain_observe(*args, cfg)
-            br = stereo.observe_branches(*args, cfg)
+            got = stereo_kernel.observe(*args, cfg_c)
+            want = stereo.plain_observe(*args, cfg_c)
+            br = stereo.observe_branches(*args, cfg_c)
             torch.cuda.synchronize()
             per = k2_differ(got, want)
             dc = int((got.num_created - want.num_created).abs().max())
@@ -946,7 +1083,8 @@ def k2_phase(cases, cfg, gpu):
             bits = ""
             if V > 1:
                 for b in range(V):
-                    alone = stereo_kernel.observe(*k2_video(args, b), cfg)
+                    alone = stereo_kernel.observe(*k2_video(args, b),
+                                                  cfg_c)
                     same = all(same_bits(getattr(alone.state, f),
                                          getattr(got.state, f)[b])
                                for f in FIELDS)
@@ -967,7 +1105,7 @@ def k2_phase(cases, cfg, gpu):
                   f"{want.num_updated.tolist()}); plain twin's codes of "
                   f"the pixels that run {codes}, branches {counts}{bits}")
             if is_timed:
-                timed[V] = k2_times(args, cfg, br, gpu, label)
+                timed[V] = k2_times(args, cfg_c, br, gpu, label)
     return worst, branch_counts, timed
 
 
@@ -1121,6 +1259,10 @@ def main() -> int:
         k_sass = sass_counts(lib_k, cuobjdump)
         for fn, res in kernel_resources(lib_k, cuobjdump).items():
             print(f"{fn}: {res}; {sum(k_sass[fn])} SASS instructions")
+    # K2's registers, stack and shared memory (its list and the current
+    # image's box are dynamic shared memory, kSmemBytes a block)
+    res_k2 = kernel_resources(lib_k2, cuobjdump)["stereo_observe"]
+    print(f"K2 stereo_observe: {res_k2}")
     resources = kernel_resources(lib, cuobjdump)
     cfg = ELLCConfig().replace(**PARITY_OVERRIDES)
     H, W = cfg.shape
@@ -1330,13 +1472,25 @@ def main() -> int:
     stressed = st.depth.replace(var=torch.where(
         st.depth.valid & quarter, 0.24, st.depth.var))
     fresh = dstate.empty(cfg.shape, dev)
+    # the seeded pose's translation eight times over: long segments, some
+    # of them walked to within a pixel of the border line (the real frames
+    # have no texture there); and the kernel's most steps
+    border_obs = seeded_obs[:-1] + (seeded_pose * torch.tensor(
+        [1.0, 1.0, 1.0, 8.0, 8.0, 8.0], device=dev),)
+    cfg_long = cfg.replace(stereo_max_steps=K2_MAX_STEPS,
+                           max_epl_length_crop=K2_LONG_CROP)
     worst_k2, branches_k2, timed_k2 = k2_phase(
         [("seeded 270x480, seeded state", (seeded_st, *seeded_obs), False),
          ("seeded 270x480, fresh state", (fresh, *seeded_obs), False),
          ("real 270x480, fresh state", (fresh, *real_obs), False),
          ("real 270x480, pipeline state", (st.depth, *real_obs), True),
          ("real 270x480, pipeline state, variances near max_var",
-          (stressed, *real_obs), False)], cfg, gpu)
+          (stressed, *real_obs), False),
+         ("seeded 270x480, fresh state, segments at the border (the "
+          "translation x8)", (fresh, *border_obs), False),
+         (f"real 270x480, pipeline state, {K2_MAX_STEPS} steps and a "
+          f"{K2_LONG_CROP:g}-pixel crop", (st.depth, *real_obs), False,
+          cfg_long)], cfg, gpu)
     on_real = {k: sum(c[k] for label, c in branches_k2.items()
                       if label.startswith("real"))
                for k in next(iter(branches_k2.values()))}
@@ -1396,6 +1550,16 @@ def main() -> int:
           f"{fps:.3f} frames/s over frames {n_a + 2}..{n_b + 1} (after the "
           f"first interval) on {gpu}; seeds% min {res.seeds.min():.2f} "
           f"last {res.seeds[-1]:.2f}")
+
+    # device-idle gaps (no profiler): CUDA events around every step of the
+    # same run once more, its graphs captured, beside one track_refine
+    # graph replayed alone with the host ahead
+    with tempfile.TemporaryDirectory() as out:
+        gaps4 = step_gaps(lambda: runner.run_sequence(
+            iter(frames[:MAIN_FRAMES]), cfg, dev, out_dir=out))
+    print_gaps(f"phase 4's run_sequence ({MAIN_FRAMES - 1} frames, init and "
+               f"frame reads included)", gaps4, MAIN_FRAMES - 1,
+               replay_ms(track_graph()), gpu)
 
     # intervals_per_dispatch: outputs read every 4 intervals (the default
     # above) against every interval, in turns 1/4/4/1 on the same frames;
@@ -2180,20 +2344,29 @@ def main() -> int:
     print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
           f"{sum(pools14.values()) / 2**20:.1f} MiB")
 
-    def gn_fps(track, keyframe, n=16):
-        """Tracked frames/s over frames 9..8+n of run_gn from the state
-        after the first interval, synced at both ends."""
-        st = pipeline.init_pipeline(frames[0], cfg, dev)
-        st, _, _ = pipeline.process_interval(st, imgs14[:K - 1], cfg)
+    def gn_loop(track, keyframe, n=16):
+        """The loop over frames 9..8+n of run_gn, from the state after the
+        first interval (made now), ending on a read of its last output."""
+        st0 = pipeline.init_pipeline(frames[0], cfg, dev)
+        st0, _, _ = pipeline.process_interval(st0, imgs14[:K - 1], cfg)
         imgs = [torch.as_tensor(f, device=dev) for f in frames[K:K + n]]
+
+        def loop():
+            st = st0
+            for i, img in enumerate(imgs):
+                if (K + i) % K == K - 1:
+                    st, o, _ = keyframe(st, img, cfg)
+                else:
+                    st, o = track(st, img, cfg)
+            float(o.seeds)
+        return loop
+
+    def gn_fps(track, keyframe, n=16):
+        """Tracked frames/s of gn_loop, synced at both ends."""
+        loop = gn_loop(track, keyframe, n)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i, img in enumerate(imgs):
-            if (K + i) % K == K - 1:
-                st, o, _ = keyframe(st, img, cfg)
-            else:
-                st, o = track(st, img, cfg)
-        float(o.seeds)
+        loop()
         return n / (time.perf_counter() - t0)
 
     turns = []
@@ -2209,6 +2382,13 @@ def main() -> int:
           f"{max(v for g, v in turns if g):.3f}, eager "
           f"{min(v for g, v in turns if not g):.3f}-"
           f"{max(v for g, v in turns if not g):.3f}; on {gpu}")
+    # device-idle gaps of the graphed loop, no profiler (the steps looked
+    # up at each call, so that step_gaps' events wrap them)
+    gaps14 = step_gaps(gn_loop(
+        lambda *a: pipeline.track_refine_step(*a),
+        lambda *a: pipeline.keyframe_step(*a)))
+    print_gaps("phase 14's graphed loop (16 frames on the card)", gaps14,
+               16, replay_ms(track_graph()), gpu)
 
     src = os.path.join(PKG, "csrc", "reg_kernel.cu")
     replaces = "egomotion_with_local_loop_closures_tpu/ops/reg_kernel.py:161"
@@ -2299,6 +2479,7 @@ def main() -> int:
          "max_abs_err": worst_k2[1],
          "max_abs_err_of": "max |float plane diff| over every pixel",
          "not_bit_equal_px": worst_k2[0],
+         "resources": res_k2,
          "ms": timed_k2[1][0], "plain_ms": timed_k2[1][1],
          "bound_ms": timed_k2[1][2], "bound_by": timed_k2[1][3],
          "library_ms": None,

@@ -21,13 +21,14 @@ on CPU tensors it runs the plain body below, its twin
 the kernel.  The standalone dense :func:`line_stereo` stays plain: only
 tests call it.
 
-On the card the twin rounds as K2 does: its pose blocks come from
+The twin rounds as K2 does: its pose blocks come from
 ``geom/lie.py``, whose products are sums entry by entry as in the kernel
 (no cuBLAS product, whose fused multiply-adds round otherwise), and a
 division by a configuration value is a multiplication by its float32
-reciprocal (what ATen's CUDA division by a scalar does).  The CPU's
-vectorized ``torch.sqrt`` is not correctly rounded, so there the twin may
-differ from K2's CPU build on a few pixels.  The triangulation cancels: a
+reciprocal (what ATen's CUDA division by a scalar does); every square
+root is taken in float64 and rounded once (:func:`_sqrt`), the correctly
+rounded value that K2's ``sqrtf`` gives, which the CPU's float32
+``torch.sqrt`` does not always give.  The triangulation cancels: a
 pose one unit in the last place off moves a few pixels' inverse depth by
 1e-5 relative, which is why the twin holds to K2's rounding.
 
@@ -99,9 +100,17 @@ def epl_direction(kf_image: torch.Tensor, t_kf_from_cur: torch.Tensor,
     g2 = gx * gx + gy * gy
     ok = ok & (grad2 / torch.where(g2 > 0, g2, 1e-12)
                >= cfg.min_epl_angle_squared)
-    fac = cfg.gradient_sample_dist / torch.sqrt(torch.where(len2 > 0, len2,
-                                                            1.0))
+    fac = cfg.gradient_sample_dist / _sqrt(torch.where(len2 > 0, len2, 1.0))
     return epx * fac, epy * fac, ok
+
+
+def _sqrt(a: torch.Tensor) -> torch.Tensor:
+    """sqrt taken in float64 and rounded once to ``a``'s dtype: the
+    correctly rounded float32 sqrt, which K2's ``sqrtf`` is, on every
+    device.  The CPU's float32 ``torch.sqrt`` is not correctly rounded (a
+    unit in the last place off on some inputs), so with it the twin's bits
+    would hang on the CPU's sqrt."""
+    return torch.sqrt(a.double()).to(a.dtype)
 
 
 def _recip(c: float) -> float:
@@ -201,7 +210,7 @@ def _segment_setup(x, y, epxn, epyn, min_idepth, prior_idepth, max_idepth,
 
     incx = pclose[0] - pfar[0]
     incy = pclose[1] - pfar[1]
-    epl_len = torch.sqrt(incx * incx + incy * incy)
+    epl_len = _sqrt(incx * incx + incy * incy)
     code = _set_code(code, ~(epl_len > 0) | torch.isinf(epl_len), -4)  # (:472)
 
     # crop to MAX_EPL_LENGTH_CROP (:479-483)
@@ -252,7 +261,7 @@ def _segment_setup(x, y, epxn, epyn, min_idepth, prior_idepth, max_idepth,
     pclose_y = pclose_y + add_y * incy
     fincx = pclose_x - pfar_x
     fincy = pclose_y - pfar_y
-    new_len = torch.sqrt(fincx * fincx + fincy * fincy)
+    new_len = _sqrt(fincx * fincx + fincy * fincy)
     still_out = ((pclose_x <= b) | (pclose_x >= W - b)
                  | (pclose_y <= b) | (pclose_y >= H - b))
     clamped = lo_x | hi_x | lo_y | hi_y
@@ -393,7 +402,7 @@ def _walk(x, y, real, epxn, epyn, gix, giy, seg: SegmentSetup,
     g_along = g_along / torch.where(torch.abs(sample_dist) > 1e-12,
                                     sample_dist * sample_dist, 1e-12)
     code = _set_code(
-        code, best > cfg.max_error_stereo + torch.sqrt(
+        code, best > cfg.max_error_stereo + _sqrt(
             torch.clamp_min(g_along, 0.0)) * 20.0, -3)
 
     # ---- triangulation (:824-853) ----
@@ -542,7 +551,7 @@ def _observe(state, kf_image, kf_gradx, kf_grady, kf_maxgrad, cur_image,
     run = do_pixel & epl_ok
 
     # stereo search band (create: :279-282; update: :898-904)
-    sv = torch.sqrt(torch.clamp_min(state.var_smoothed, 0.0))
+    sv = _sqrt(torch.clamp_min(state.var_smoothed, 0.0))
     upd_min = torch.clamp_min(
         state.idepth_smoothed - sv * cfg.stereo_epl_var_fac, 0.0)
     upd_max = torch.clamp_max(

@@ -40,7 +40,7 @@ from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
     FIELDS, DepthMapState)
 
 SOURCE: Path = ops.CSRC / "stereo_kernel.cu"
-MAX_STEPS = 64          # the kernel's walk history (kMaxSteps)
+MAX_STEPS = 64          # the kernel's most steps a walk (kMaxSteps)
 
 # Launches on the CUDA path since the last reset_launches().
 launches: Dict[str, int] = {"stereo_observe": 0}

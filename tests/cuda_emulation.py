@@ -4,14 +4,16 @@ A shim header stands in for the CUDA runtime.  A kernel launch becomes
 ``emu_launch``, which runs the grid's blocks one after another, or, for a
 kernel declared with ``__cluster_dims__(X, 1, 1)``, one cluster of X
 blocks after another.  Each CUDA thread of the running block (or cluster)
-is a fiber (``ucontext``) on the calling thread, and a round-robin
+is a fiber on the calling thread (its own stack; on x86-64 a switch of
+the callee-saved registers, elsewhere ``ucontext``), and a round-robin
 scheduler switches between them only where CUDA threads meet:
 
 - ``__syncthreads`` waits for the block's live threads;
 - ``__shfl_xor_sync`` and ``__shfl_down_sync`` exchange one 32-bit value
-  between the 32 threads of a warp, each lane writing its slot and waiting
-  for the warp's live threads (two sets of slots taken in turn, so one
-  wait a shuffle suffices);
+  (a float or an int) between the 32 threads of a warp, and
+  ``__ballot_sync`` gathers their predicates (a returned lane gives 0),
+  each lane writing its slot and waiting for the warp's live threads (two
+  sets of slots taken in turn, so one wait an exchange suffices);
 - ``cooperative_groups::this_cluster()``'s ``sync`` waits for every live
   thread of the cluster, ``block_rank`` is the block's index in it, and
   ``map_shared_rank`` maps an address in the block's dynamic shared
@@ -22,8 +24,9 @@ thread no longer holds a barrier back.  ``__shared__`` variables are
 function statics, one copy for all blocks: a cluster kernel keeps its
 shared memory in its dynamic buffer (``extern __shared__``), which the
 shim gives each block of a cluster.  ``atomicAdd`` on an int is a
-``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence
-and ``__ldcg`` a plain load: one OS thread runs all fibers.  The sources'
+``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence,
+``__ldcg`` a plain load, ``__popc`` the compiler's builtin, and
+``cudaFuncSetAttribute`` does nothing: one OS thread runs all fibers.  The sources'
 headers (``csrc/*.cuh``) are copied beside them.  Built with
 ``-ffp-contract=off``, as nvcc's ``-fmad=false`` keeps every multiply and
 add apart.  The grid's z axis is not emulated
@@ -45,6 +48,7 @@ SHIM = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <algorithm>
 #include <functional>
 #include <ucontext.h>
 #include <vector>
@@ -55,17 +59,70 @@ struct dim3 {
 struct uint3 { unsigned x, y, z; };
 // the running fiber's indices, set by the scheduler at every switch
 inline uint3 threadIdx, blockIdx;
+#if defined(__x86_64__)
+// a switch between fibers that saves the callee-saved registers and no
+// signal mask: swapcontext's system call would take most of the time of a
+// warp exchange, 64 switches
+extern "C" void emu_switch(void** save_sp, void* load_sp);
+asm(R"(
+  .text
+  .globl emu_switch
+  .hidden emu_switch
+  .type emu_switch, @function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_switch, .-emu_switch
+)");
+#endif
 namespace emu {
+#if defined(__x86_64__)
+struct Ctx { void* sp = nullptr; };
+inline void switch_to(Ctx& from, Ctx& to) { emu_switch(&from.sp, to.sp); }
+// a new fiber's stack: six zero registers under fn, where the first switch
+// to it returns, and a return slot that fn never uses
+inline void make(Ctx& c, unsigned char* stack, size_t size, void (*fn)()) {
+  void** sp = reinterpret_cast<void**>(
+      (reinterpret_cast<uintptr_t>(stack) + size) & ~uintptr_t(15));
+  *--sp = nullptr;
+  *--sp = reinterpret_cast<void*>(fn);
+  for (int i = 0; i < 6; ++i) *--sp = nullptr;
+  c.sp = sp;
+}
+#else
+struct Ctx { ucontext_t uc; };
+inline void switch_to(Ctx& from, Ctx& to) { swapcontext(&from.uc, &to.uc); }
+inline void make(Ctx& c, unsigned char* stack, size_t size, void (*fn)()) {
+  getcontext(&c.uc);
+  c.uc.uc_stack.ss_sp = stack;
+  c.uc.uc_stack.ss_size = size;
+  c.uc.uc_link = nullptr;
+  makecontext(&c.uc, fn, 0);
+}
+#endif
 struct Group { int expected = 0, arrived = 0; std::vector<int> waiting; };
 struct Fiber {
-  ucontext_t ctx;
+  Ctx ctx;
   uint3 tid, bid;
   int block = 0, warp = 0;
   unsigned shuffles = 0;
   bool waiting = false, done = false;
 };
 struct Run {
-  ucontext_t sched;
+  Ctx sched;
   std::vector<Fiber> fibers;
   std::vector<Group> blocks, warps;
   Group cluster;
@@ -87,7 +144,7 @@ inline void wait(Group& g) {
   const int me = run->cur;
   g.waiting.push_back(me);
   run->fibers[me].waiting = true;
-  swapcontext(&run->fibers[me].ctx, &run->sched);
+  switch_to(run->fibers[me].ctx, run->sched);
 }
 inline void leave(Group& g) {
   if (--g.expected > 0 && g.arrived == g.expected) release(g);
@@ -99,6 +156,7 @@ inline void start() {
   leave(run->blocks[f.block]);
   leave(run->warps[f.warp]);
   leave(run->cluster);
+  switch_to(f.ctx, run->sched);                 // never resumed
 }
 // runs blocks [b0, b0 + nb) of row by of the grid together, one fiber a
 // thread, until every fiber has returned
@@ -121,11 +179,7 @@ inline void blocks_together(unsigned b0, unsigned nb, unsigned by,
     f.bid = {b0 + f.block, by, 0};
     run->blocks[f.block].expected++;
     run->warps[f.warp].expected++;
-    getcontext(&f.ctx);
-    f.ctx.uc_stack.ss_sp = stacks.data() + i * kStack;
-    f.ctx.uc_stack.ss_size = kStack;
-    f.ctx.uc_link = &run->sched;
-    makecontext(&f.ctx, start, 0);
+    make(f.ctx, stacks.data() + i * kStack, kStack, start);
   }
   for (;;) {
     bool live = false, ran = false;
@@ -137,7 +191,7 @@ inline void blocks_together(unsigned b0, unsigned nb, unsigned by,
       run->cur = i;
       threadIdx = f.tid;
       blockIdx = f.bid;
-      swapcontext(&run->sched, &f.ctx);
+      switch_to(run->sched, f.ctx);
       ran = true;
     }
     if (!live) return;
@@ -155,22 +209,45 @@ inline uint32_t shuffle(uint32_t v, int src_of_lane(int, int), int arg) {
 }
 inline int xor_lane(int lane, int m) { return lane ^ m; }
 inline int down_lane(int lane, int d) { return lane + d; }
+// the warp's predicates as bits, lane i bit i; a lane that has returned
+// (or that the block does not have) gives 0
+inline uint32_t ballot(bool pred) {
+  Fiber& f = run->fibers[run->cur];
+  const int lane = f.tid.x & 31, first = run->cur - lane;
+  uint32_t* s = &run->slots[(f.warp * 2 + (f.shuffles++ & 1)) * 32];
+  s[lane] = pred ? 1u : 0u;
+  wait(run->warps[f.warp]);
+  uint32_t bits = 0;
+  for (int i = 0; i < 32; ++i) {
+    const size_t j = first + i;
+    if (j < run->fibers.size() && run->fibers[j].warp == f.warp
+        && !run->fibers[j].done && s[i])
+      bits |= 1u << i;
+  }
+  return bits;
+}
+template <class T> inline T shuffle_as(T v, int src_of_lane(int, int), int arg) {
+  static_assert(sizeof(T) == 4, "32-bit values");
+  uint32_t b; std::memcpy(&b, &v, 4);
+  b = shuffle(b, src_of_lane, arg);
+  std::memcpy(&v, &b, 4); return v;
+}
 inline unsigned char* dynamic_smem() { return run->smem[run->fibers[run->cur].block].data(); }
 }  // namespace emu
 
 inline void __syncthreads() {
   emu::wait(emu::run->blocks[emu::run->fibers[emu::run->cur].block]);
 }
-inline float __shfl_xor_sync(unsigned, float v, int m, int = 32) {
-  uint32_t b; std::memcpy(&b, &v, 4);
-  b = emu::shuffle(b, emu::xor_lane, m);
-  std::memcpy(&v, &b, 4); return v;
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m, int = 32) {
+  return emu::shuffle_as(v, emu::xor_lane, m);
 }
-inline float __shfl_down_sync(unsigned, float v, unsigned d, int = 32) {
-  uint32_t b; std::memcpy(&b, &v, 4);
-  b = emu::shuffle(b, emu::down_lane, (int)d);
-  std::memcpy(&v, &b, 4); return v;
+template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned d, int = 32) {
+  return emu::shuffle_as(v, emu::down_lane, (int)d);
 }
+inline unsigned __ballot_sync(unsigned, int pred) { return emu::ballot(pred != 0); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+using std::max;
+using std::min;
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
@@ -198,6 +275,8 @@ inline cluster_group this_cluster() { return {}; }
 #define __align__(n) alignas(n)
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 // a launch: grid.x blocks a row, cluster blocks together (1: one at a time)
 template <class F, class A>

@@ -16,18 +16,24 @@ to code -4).  Each is observed against the last current frame.
 - The plain twin's decisions on both inputs reach every line_stereo code
   and every EKF branch, so no comparison below passes vacuously.
 - The CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``)
-  against the plain twin: bit for bit where the twin's sqrt is correctly
-  rounded, as the card's and the kernel's are; with the CPU's vectorized
-  sqrt, which is not, at most 0.1 % of the pixels may differ in any output
-  plane (a float plane beyond rtol 1e-5: near-ties of the SSD minimum and
-  a triangulation that cancels), the counts within as many pixels.
+  against the plain twin, bit for bit: the twin takes its square roots in
+  float64 and rounds once (``depth/stereo.py::_sqrt``), the correctly
+  rounded value the kernel's ``sqrtf`` gives, so the result is the same
+  whether ``torch.sqrt`` is the CPU's own (not correctly rounded for
+  float32) or a correctly rounded one.  Besides the fixture's states: walks
+  of every length the segment allows up to 64 steps (a configuration with
+  ``stereo_max_steps`` 64, the kernel's most, and a longer crop), a
+  current image with NaN pixels (NaN samples: the first NaN step is the
+  best), and the source built with a box of 64 floats (nearly every
+  sample read from the image instead) and with 32 x 4 tiles.
 - The emulated K2 against the JAX package's dense ``observe``, at
   tests/test_torch_stereo.py's tolerances.
 - Each video of a batch of three (the fresh and evolved states and a video
-  with a NaN pose, which runs no pixel) bit-equal to its own call, and the
-  NaN video equal to the plain twin.
+  with a NaN pose, which runs no pixel) bit-equal to its own call and to
+  the plain twin.
 - The wrapper on CPU tensors runs the plain twin and launches nothing; the
-  module imports without nvcc; the source's only atomics add integers.
+  module imports without nvcc; the source's atomics all add integers, and
+  it keeps no per-step array in a thread's local memory.
 - On a card (``-m cuda``; run there with ``python -m pytest
   tests/test_torch_stereo_kernel.py -m cuda --noconftest``, since that
   machine has no jax: this file imports the JAX package only in a fixture)
@@ -59,10 +65,6 @@ KW = dict(rows=96, cols=128, fx=110.0, fy=110.0, cx=64.0, cy=48.0,
           bootstrap_rng="glibc")
 CFG = ELLCConfig(**KW)
 MOTION = np.asarray([0.002, -0.001, 0.0, 0.04, 0.01, 0.0], np.float32)
-# pixels where the CPU emulation may differ from the twin with the CPU's
-# sqrt (0 and 2 of these 12,288 pixels differ), and the relative tolerance
-# of a float plane elsewhere
-EMULATED_FRAC, RTOL = 0.001, 1e-5
 BRANCHES = ("create_ok", "create_blacklist", "u_notfound", "inconsistent",
             "u_success", "nf_kill")
 
@@ -138,33 +140,6 @@ def nan_pose(args):
     return args[:-1] + (torch.full_like(args[-1], float("nan")),)
 
 
-def differing(got, want):
-    """(fraction of pixels where any plane differs, beyond RTOL for a
-    float plane, NaN equal to NaN; the same count where the integer and
-    bool planes agree)."""
-    shape = want.state.valid.shape
-    bad = torch.zeros(shape, dtype=torch.bool, device=want.state.valid.device)
-    discrete = bad.clone()
-    for n in FIELDS:
-        a, b = getattr(got.state, n), getattr(want.state, n)
-        if b.dtype.is_floating_point:
-            bad |= ~torch.isclose(a, b, rtol=RTOL, atol=0.0, equal_nan=True)
-        else:
-            discrete |= a != b
-    bad |= discrete
-    return float(bad.float().mean()), int((bad & ~discrete).sum())
-
-
-def assert_matches_plain(got, want, limit):
-    frac, float_only = differing(got, want)
-    assert frac <= limit, (frac, float_only)
-    n = want.state.valid.numel()
-    for a, b in ((got.num_created, want.num_created),
-                 (got.num_updated, want.num_updated)):
-        assert a.dtype == b.dtype == torch.int32
-        assert abs(int(a) - int(b)) <= limit * n
-
-
 def assert_bits(got, want):
     for n in FIELDS:
         torch.testing.assert_close(getattr(got.state, n),
@@ -187,22 +162,47 @@ def test_inputs_reach_every_code_and_branch(inputs, which):
     assert all(n > 0 for n in counts.values()), counts
 
 
+def test_twin_sqrt_is_correctly_rounded():
+    """The twin's square root is the correctly rounded float32 one (numpy's
+    float32 sqrt, IEEE's) on seeded inputs over many binades, as K2's
+    ``sqrtf`` is; the CPU's float32 ``torch.sqrt`` need not be."""
+    rng = np.random.default_rng(3)
+    a = (rng.uniform(size=20_000) * 10.0 ** rng.integers(-6, 7, 20_000)
+         ).astype(np.float32)
+    got = stereo._sqrt(torch.as_tensor(a)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sqrt(a).view(np.int32))
+
+
 # --- the wrapper on the CPU ---
 
 def test_module_imports_without_nvcc_and_atomics_add_integers():
-    """The module imported above without building anything; the kernel's
-    only atomics add int32 counts (exact in any order), and its constants
-    mirror the C struct field for field."""
+    """The module imported above without building anything; every atomic
+    of the kernel adds to an int32 count (exact in any order: no float
+    atomic), it is one kernel, no thread keeps a per-step array in its
+    local memory (a walk keeps its 5-sample window and the steps it needs
+    as they come), the walkers are compacted by a warp ballot, and its
+    constants mirror the C struct field for field."""
     assert stereo_kernel._lib is None
     src = stereo_kernel.SOURCE.read_text()
     code = re.sub(r"//[^\n]*", "", src)
-    atomics = re.findall(r"atomic\w*\(&([\w.\[\]]+),", code)
-    assert len(re.findall(r"atomic", code)) == len(atomics) == 4
-    assert set(atomics) == {"s_count[0]", "s_count[1]", "a.num_created[v]",
-                            "a.num_updated[v]"}
+    atomics = re.findall(r"(atomic\w*)\(&([\w.\[\]]+),", code)
+    assert len(re.findall(r"atomic\w*\(", code)) == len(atomics) > 0
+    assert {op for op, _ in atomics} == {"atomicAdd"}
+    assert {target.split("[")[0] for _, target in atomics} == {
+        "s_count", "a.num_created", "a.num_updated"}
     assert re.search(r"__shared__ int s_count", code)
     assert re.search(r"int32_t\* __restrict__ num_created;", code)
+    assert re.search(r"int32_t\* __restrict__ num_updated;", code)
     assert src.count("__global__") == 1
+    # arrays outside shared memory: each dimension a literal of at most 9
+    # (a pose block, a 5-sample window)
+    local = re.findall(r"^\s*(?:const )?(?:float|int|bool|unsigned) "
+                       r"\w+((?:\[[^\]]+\])+)", code, re.M)
+    dims = [d for decl in local for d in re.findall(r"\[([^\]]+)\]", decl)]
+    assert dims and all(d.isdigit() and int(d) <= 9 for d in dims), dims
+    assert "__ballot_sync" in code and "__popc" in code
     body = re.search(r"struct StereoParams \{(.*?)\};", code, re.S).group(1)
     fields = []
     for kind, names in re.findall(r"(float|int) ([^;]+);", body):
@@ -238,15 +238,15 @@ def emulated(tmp_path_factory):
 
     def run(*args):
         return stereo_kernel._launch(lib, *args, CFG, 0)
+    run.lib = lib
     return run
 
 
 @pytest.mark.parametrize("sqrt", ["cpu", "correctly_rounded"])
 @pytest.mark.parametrize("which", ["fresh", "evolved"])
 def test_emulated_matches_plain(inputs, emulated, monkeypatch, which, sqrt):
-    """With the CPU's sqrt, within EMULATED_FRAC of the pixels; with a
-    correctly rounded one (the card's, and the kernel's), bit for bit:
-    the twin rounds as the kernel does."""
+    """Bit for bit, with the CPU's ``torch.sqrt`` or a correctly rounded
+    one: the twin rounds as the kernel does, its square roots included."""
     args = inputs[which]
     got = emulated(*args)
     if sqrt == "correctly_rounded":
@@ -254,10 +254,7 @@ def test_emulated_matches_plain(inputs, emulated, monkeypatch, which, sqrt):
         monkeypatch.setattr(torch, "sqrt",
                             lambda a: cpu_sqrt(a.double()).to(a.dtype))
     want = stereo.plain_observe(*args, CFG)
-    if sqrt == "cpu":
-        assert_matches_plain(got, want, EMULATED_FRAC)
-    else:
-        assert_bits(got, want)
+    assert_bits(got, want)
     assert int(want.num_created) > 0 and int(want.num_updated) > 0
     # the state is new, the input untouched
     assert all(getattr(got.state, n) is not getattr(args[0], n)
@@ -265,12 +262,13 @@ def test_emulated_matches_plain(inputs, emulated, monkeypatch, which, sqrt):
 
 
 def test_emulated_videos_equal_their_own_calls_bit_for_bit(inputs, emulated):
-    """The fresh and evolved states and a NaN-pose video in one call: each
-    video's planes and counts equal its own call's; the NaN video runs no
-    pixel, so it equals the plain twin bit for bit."""
+    """The fresh and evolved states and a NaN-pose video in one call: the
+    batch equals the plain twin's batch and each video's planes and counts
+    its own call's, bit for bit; the NaN video runs no pixel."""
     vids = [inputs["fresh"], inputs["evolved"], nan_pose(inputs["fresh"])]
     batch = emulated(*stack(vids))
     assert batch.num_created.shape == (3,)
+    assert_bits(batch, stereo.plain_observe(*stack(vids), CFG))
     for v, args in enumerate(vids):
         alone = emulated(*args)
         assert_bits(stereo.ObserveResult(
@@ -279,6 +277,81 @@ def test_emulated_videos_equal_their_own_calls_bit_for_bit(inputs, emulated):
     nan_alone = emulated(*vids[2])
     assert_bits(nan_alone, stereo.plain_observe(*vids[2], CFG))
     assert int(nan_alone.num_created) == int(nan_alone.num_updated) == 0
+
+
+def long_walks():
+    """observe's arguments and configuration for walks of every length: the
+    kernel's most steps (64), a crop of 70 pixels and no minimum length, a
+    keyframe of vertical stripes, a state whose search bands run from a
+    few hundredths of a pixel to past the crop, and a pose whose epipolar
+    lines are horizontal but for a rounding's worth (walks of two steps)."""
+    cfg = CFG.replace(stereo_max_steps=64, max_epl_length_crop=70.0,
+                      min_epl_length_crop=0.0)
+    rng = np.random.default_rng(11)
+    H, W = CFG.rows, CFG.cols
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+
+    def stripes(dx):
+        return torch.as_tensor(np.round(
+            120 + 50 * np.sin((x - dx) / 2.3 + 0.4 * np.sin(y / 5.0))
+            + rng.normal(0, 3, (H, W))).astype(np.float32))
+    kf, cur = stripes(0.0), stripes(4.0)
+    gx, gy = pyramid.gradients(kf)
+    mg = pyramid.max_abs_gradient(gx, gy)
+    sv = np.exp(rng.uniform(np.log(1e-3), np.log(3.0), (H, W)))
+    ids = torch.as_tensor(rng.uniform(0.5, 1.0, (H, W)).astype(np.float32))
+    st = DepthMapState(
+        idepth=ids, var=torch.full((H, W), 0.01), idepth_smoothed=ids,
+        var_smoothed=torch.as_tensor((sv * sv).astype(np.float32)),
+        validity=torch.full((H, W), 5.0),
+        blacklisted=torch.zeros((H, W), dtype=torch.int32),
+        valid=torch.ones((H, W), dtype=torch.bool))
+    pose = torch.tensor([0.0, 0.0, 0.0, 0.12, 3e-7, 1e-6])
+    return (st, kf, gx, gy, mg, cur, pose), cfg
+
+
+def test_emulated_walks_of_every_length(emulated):
+    """Walks of every length from 2 to 64 steps (a lane's first and second
+    step, every lane, and both ballots of the walk's length), bit for bit
+    against the twin.  One step is no walk the segment allows: step 1 is
+    its far end, which the walk starts one step before."""
+    args, cfg = long_walks()
+    b = stereo.observe_branches(*args, cfg)
+    walked = b["run"] & ((b["code"] == 0) | (b["code"] == -2)
+                         | (b["code"] == -3))
+    assert set(range(2, 65)) <= set(b["steps"][walked].tolist())
+    got = stereo_kernel._launch(emulated.lib, *args, cfg, 0)
+    assert_bits(got, stereo.plain_observe(*args, cfg))
+
+
+def test_emulated_nan_samples(inputs, emulated):
+    """NaN pixels in the current image: a walk over them has NaN SSDs,
+    whose first is its best step (torch.argmin's rule); bit for bit
+    against the twin, which the NaNs move."""
+    st, kf, gx, gy, mg, cur, pose = inputs["evolved"]
+    cur = cur.clone()
+    cur[40:56, 84:92] = float("nan")
+    args = (st, kf, gx, gy, mg, cur, pose)
+    want = stereo.plain_observe(*args, CFG)
+    moved = stereo.plain_observe(*inputs["evolved"], CFG)
+    assert not all(torch.equal(getattr(want.state, n),
+                               getattr(moved.state, n)) for n in FIELDS)
+    assert_bits(emulated(*args), want)
+
+
+@pytest.mark.parametrize("defines", [("ELLC_K2_BOX=64",),
+                                     ("ELLC_K2_TILE_H=4",
+                                      "ELLC_K2_MIN_BLOCKS=1")])
+def test_emulated_tile_variants_match_plain(inputs, tmp_path, defines):
+    """The source built with other constants, bit for bit against the twin
+    on the evolved state and on walks of every length: a box of 64 floats
+    (nearly every sample falls off it: the image path) and tiles of 32 x 4
+    pixels (tools/time_k2.py times such variants on the card)."""
+    lib = stereo_kernel.bind(ctypes.CDLL(str(cuda_emulation.build_for_cpu(
+        stereo_kernel.SOURCE, tmp_path, 1, defines))))
+    for args, cfg in ((inputs["evolved"], CFG), long_walks()):
+        assert_bits(stereo_kernel._launch(lib, *args, cfg, 0),
+                    stereo.plain_observe(*args, cfg))
 
 
 @pytest.fixture(scope="module")
