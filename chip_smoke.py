@@ -8,10 +8,12 @@ Phases, each announced on its own line:
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: compiles the K3 kernel (csrc/reg_kernel.cu), the two K1
-   kernels (csrc/gn_kernel.cu: gn_level_cluster and gn_step) and the K2
-   kernel (csrc/stereo_kernel.cu) from this checkout, one nvcc each,
-   started together, and prints each kernel's registers, stack and shared
-   memory and its static SASS instruction count (cuobjdump);
+   kernels (csrc/gn_kernel.cu: gn_level_cluster and gn_step), the K2
+   kernel (csrc/stereo_kernel.cu) and propagate's two merge kernels
+   (csrc/propagate_kernel.cu: propagate_link and propagate_merge) from
+   this checkout, one nvcc each, started together, and prints each
+   kernel's registers, stack and shared memory and its static SASS
+   instruction count (cuobjdump);
 3. K3 against its plain PyTorch version on the card, bit for bit (NaN
    equal to NaN), on a numpy-seeded state with holes and on a real state
    from the pipeline at 480x270, and on states whose border pixels are
@@ -69,6 +71,20 @@ Phases, each announced on its own line:
    are printed, and the real frames must reach every branch.  Then K2's
    and the plain version's time per call from CUDA-graph replays at V = 1
    and 8 on the update path, in turns, beside K2's bound;
+3d. propagate's merge kernels against their plain twin
+   (ops/propagate_kernel.py::plain_merge, whose sums add each cell's
+   compatible candidates in ascending source index without a float
+   atomic) on the card, bit for bit in every plane (NaN equal to NaN),
+   on the candidates that depth/propagate.py::candidates makes of phase
+   3's real keyframe (the pipeline's state after frame 8, propagated into
+   frame 9 at its tracked pose): one state, 8 videos (video b rolled by
+   (b, 2b) pixels, its pose moved by 2e-4 b) and the 20 trials of
+   recovery's window cap (rolled by (7b, 23b)), and one state zoomed out
+   (the pose moved back by MERGE_ZOOM); a second call bit-equal to the
+   first.  Then the time per call of the kernels and of the merge as the
+   port ran it before them (float index_add_, atomic order) from CUDA-graph
+   replays, in turns, and of one eager call of the twin (it reads the
+   largest fan-in back to the host), beside the kernels' bound by bytes;
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's, K1's
    and K2's launch counts must equal what the frame schedule implies (K1:
@@ -79,6 +95,8 @@ Phases, each announced on its own line:
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
    the same frame and keyframe ids, frames/s and reads of each turn.
+   Every turn's poses, seeds and ids must equal the first run's bit for
+   bit (no step sums with a float atomic).
    Before those turns, the same run once more with CUDA events around
    every step (no profiler): the card's time inside and between steps
    beside a track_refine graph replayed alone, with the host ahead;
@@ -97,7 +115,9 @@ Phases, each announced on its own line:
    matchframes_globalopt.txt.  It runs with do_sim3_refine: the port's
    Sim(3) refinement on the golden file's own corrected poses and edges
    must give the JAX package's refined poses within 1e-4 per component,
-   and the run's refined poses must be within 1e-2 of them;
+   and a second refinement the first one's bits (graph/ba.py sums each
+   node's edge terms in a fixed order); the run's refined poses must be
+   within 1e-2 of them;
 7. LC mode: run_ellc_lc over exactly 144 frames of run_lc, no
    max_frames: the bootstrap batch and two batches of 32 frames, each
    rotation-averaged and replayed, the stream ending on a batch boundary;
@@ -173,16 +193,14 @@ Phases, each announced on its own line:
    pipeline._track_refine_step and _keyframe_step): every track_refine
    step bit-equal on every state field and output (NaN equal to NaN), the
    K3 launches counted from the graph's nodes equal to the eager step's;
-   the keyframe step, whose propagate sums with float atomics
-   (index_add_), tensor by tensor within twice the largest difference of
-   two of eight eager runs plus 4 units in the last place of the tensor's
-   largest magnitude, from the nearest eager run, in each of three
-   rounds (the eager-eager, graph-graph and graph-eager differences of
-   every tensor that differs are printed, absolute and in units of the
-   last place); the same for two batched videos and for replay steps with
-   an initial rotation.  Prints each captured graph's kernel nodes (from
+   the keyframe step, two graph replays and two eager runs, all four
+   bit-equal, with one launch of each merge kernel; the same for two
+   batched videos and for replay steps with an initial rotation.  Prints
+   each captured graph's kernel nodes (from
    raw_cuda_graph() and libcuda's cuGraphGetNodes) beside the eager
-   profile's 24,475 launches a frame before K1, its K3, K1 and K2 nodes
+   profile's 24,475 launches a frame before K1, its K3, K1, K2 and merge
+   nodes (a keyframe graph one of each merge kernel, a track_refine
+   graph none)
    (found by name) and its warm-up's launches, its capture and
    instantiate seconds and its pool's bytes, and GN frames/s graphed
    beside eager over the same 16 frames, in turns; then the device-idle
@@ -191,14 +209,16 @@ Phases, each announced on its own line:
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3, K1 and K2 kernel nodes of its
-graph (checked at capture against the wrapper calls the capture made);
+captured graph, and a replay counts the K3, K1, K2 and merge kernel nodes
+of its graph (checked at capture against the wrapper calls the capture
+made);
 the eager warm-up before each capture counts apart, under
 ``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
-and 10) sets K3's, K1's and K2's launch counts to 0 just before it and
-reads them just after, and holds them to a hand count of its schedule;
-phase 14 holds each replayed track_refine step to the eager step's
-launches, one of K2.  The
+and 10) sets K3's, K1's, K2's and the merge kernels' launch counts to 0
+just before it and reads them just after, and holds them to a hand count
+of its schedule; phase 14 holds each replayed step to the eager step's
+launches, one of K2 a track_refine step, one of each merge kernel a
+keyframe step.  The
 last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -294,14 +314,35 @@ SYNTHETIC_ATE_SLACK = 2.2e-3
 # pixel-sharded H at 2e-4) and each g_i within 1e-4 of sqrt(H_ii E), E
 # the energy; the sharded Sim(3) nodes within 1e-5
 SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
-# Phase 14: the keyframe step's float atomics (propagate's index_add_) part
-# two eager runs by 1-4 units in the last place of a tensor's values; the
-# graphed step is held to each tensor's spread over KF_RUNS eager runs (its
-# largest pairwise difference) with room KF_ROOM, plus KF_ULPS units in the
-# last place of the tensor's largest magnitude for a tensor whose rare
-# variation none of the eager runs of a round happened to show (validity:
-# 1 ulp in some rounds, 0 in others), in each of KF_ROUNDS rounds
-KF_RUNS, KF_ROUNDS, KF_ROOM, KF_ULPS = 8, 3, 2.0, 4
+# Propagate's merge (ops/propagate_kernel.py): one call, one launch of
+# each of its two kernels, a keyframe step and a batched recovery trial
+# (one for all candidates).  Calls per path, from the schedules counted for
+# K3 above (each keyframe step one regularize, and the init one): phase 4
+# 16 keyframe steps; phase 6 10; phase 7 10 + 10 replayed + 4 x 4 = 36;
+# phase 8 6 keyframe steps and 2 trials; phase 9 4, one video's count
+# whatever V; phase 10 8.
+MERGE_CALLS = {"gn_run_sequence": 16, "lc_bootstrap": 10, "lc_mode": 36,
+               "recovery": 8, "batched_videos": 4, "synthetic": 8}
+# Phase 3d: the real keyframe's pose with the camera moved back by
+# MERGE_ZOOM (a zoom-out, with the photometric gate opened: dozens of
+# sources a cell, more than the kernel selects in one walk, kChunk), and
+# the bytes the merge must move, each read once or written once: every
+# source's candidate flag and every cell's seven planes, and only a
+# candidate's target (int64), inverse depth, variance and validity (the
+# kernels read nothing else of a source that is not a candidate)
+MERGE_ZOOM, MERGE_BYTES_CELL, MERGE_BYTES_CAND = 3.0, 1 + 25, 8 + 4 + 4 + 4
+# its float32 operations, counted by hand from csrc/propagate_kernel.cu:
+# a candidate's winner test (2) and compatibility (5), a compatible
+# candidate's reciprocal, product and four sums with its clamp test (7),
+# a cell's finish (4)
+MERGE_OPS_CAND, MERGE_OPS_COMPAT, MERGE_OPS_CELL = 7, 7, 4
+
+
+def merge_expected(path):
+    """The merge kernels' launches on a driven path, by the hand count
+    above."""
+    return {"propagate_link": MERGE_CALLS[path],
+            "propagate_merge": MERGE_CALLS[path]}
 
 # K1 (ops/gn_kernel.py) in one align at 480x270: levels 2 and 3 (67x120
 # and 33x60: 8,040 and 1,980 pixels, each at most
@@ -477,12 +518,14 @@ def compare(ref, got, fields):
 
 
 def kernel_label(mangled):
-    """reg_kernel<kFill, kOccl>, gn_level_cluster, gn_step or
-    stereo_observe from a mangled kernel name."""
+    """reg_kernel<kFill, kOccl>, gn_level_cluster, gn_step,
+    stereo_observe, propagate_link or propagate_merge from a mangled
+    kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
     if m:
         return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
-    m = re.search(r"\d+(gn_level_cluster|gn_step|stereo_observe)E", mangled)
+    m = re.search(r"\d+(gn_level_cluster|gn_step|stereo_observe|"
+                  r"propagate_link|propagate_merge)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -1137,6 +1180,86 @@ def k2_times(args, cfg, branches, gpu, label):
     return k_ms, p_ms, bound, by
 
 
+def merge_phase(cases, cfg, gpu):
+    """Phase 3d: the merge kernels against their plain twin on ``cases``,
+    each (label, candidates()' outputs, state shape, timed): every plane
+    bit-equal to the twin, a second call bit-equal to the first; prints
+    each case's candidates, compatible candidates and largest fan-in, and
+    how many cells the merge before the kernels (float index_add_)
+    differs from them in.  Returns the largest |float difference| (0),
+    for each timed case (kernel ms, index_add_ ms, twin ms, bound ms,
+    bound by), and each case's largest fan-in (by its label up to " (")."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS)
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        propagate_kernel as pk)
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import PEAK_BYTES_S, PEAK_F32_S, device_ms
+    worst, timed, fans = 0.0, {}, {}
+    for label, args, shape, is_timed in cases:
+        got = pk.merge(*args, shape, cfg)
+        again = pk.merge(*args, shape, cfg)
+        want = pk.plain_merge(*args, shape, cfg)
+        old = index_add_merge(pk, *args, shape, cfg)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(want, got, FIELDS))
+        compare(got, again, FIELDS)
+        tgt, cand = args[0], args[1]
+        compat = pk._compat(tgt, cand, args[2], args[3], cfg, tgt.numel())
+        n_cand, n_compat = int(cand.sum()), int(compat.sum())
+        fan = int(torch.bincount(tgt[compat]).max()) if n_compat else 0
+        fans[label.split(" (")[0]] = fan
+        moved = sum(int((~same_elements(getattr(old, f), getattr(want, f)))
+                        .sum()) for f in FIELDS)
+        print(f"merge {label}: {tgt.numel()} cells, {n_cand} candidates, "
+              f"{n_compat} compatible, largest fan-in {fan}; kernels "
+              f"bit-equal to the twin in every plane and a second call "
+              f"bit-equal to the first; the index_add_ merge differs from "
+              f"the twin in {moved} plane elements")
+        if not is_timed:
+            continue
+        kern = lambda: pk.merge(*args, shape, cfg)  # noqa: E731
+        atomic = lambda: index_add_merge(pk, *args, shape, cfg)  # noqa: E731
+        ts = [device_ms(f, reps)[0] for f, reps in
+              ((atomic, 50), (kern, 200), (kern, 200), (atomic, 50))]
+        k_ms, a_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+        p_ms = call_ms(lambda: pk.plain_merge(*args, shape, cfg), reps=10)
+        nbytes = MERGE_BYTES_CELL * tgt.numel() + MERGE_BYTES_CAND * n_cand
+        ops = (MERGE_OPS_CAND * n_cand + MERGE_OPS_COMPAT * n_compat
+               + MERGE_OPS_CELL * tgt.numel())
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"merge {label}: device time per call (memset and two "
+              f"launches) {k_ms:.5f} ms, the index_add_ merge {a_ms:.5f} ms "
+              f"(turns {' '.join(f'{t:.5f}' for t in ts)}); the twin, one "
+              f"eager call with its host read, {p_ms:.4f} ms; bound "
+              f"{bound:.6f} ms by {by} ({nbytes} B, {ops} float32 ops: "
+              f"{1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} us), "
+              f"{100 * bound / k_ms:.1f} % of it reached; on {gpu}")
+        timed[label] = (k_ms, a_ms, p_ms, bound, by)
+    return worst, timed, fans
+
+
+def index_add_merge(pk, tgt, cand, idepth, var, validity, shape, cfg):
+    """The merge as the port ran it before the kernels, with float
+    ``index_add_``: on the card its sums come in atomic order.  Phase 3d
+    times the kernels beside it and counts the plane elements in which it
+    parts from the twin; ``pk`` is ``ops/propagate_kernel.py``."""
+    import torch
+    n = tgt.numel()
+    compat = pk._compat(tgt, cand, idepth, var, cfg, n)
+    sums = [torch.zeros((n,), device=tgt.device).index_add_(0, tgt, t)
+            for t in pk._terms(compat, idepth, var, validity)]
+    return pk._finish(sums, shape, cfg)
+
+
+def same_elements(a, b):
+    """Elementwise bit-equality, NaN equal to NaN."""
+    return (a == b) | (a != a) & (b != b)
+
+
 def rank_child(argv) -> int:
     """One rank of phase 12: ``chip_smoke.py --rank-child RANK PORT DIR
     DEVICE``.  Joins the two-rank gloo group, runs the pixel-sharded GN
@@ -1200,11 +1323,10 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.ops import (
-        gn_kernel, reg_kernel, stereo_kernel)
+        gn_kernel, propagate_kernel, reg_kernel, stereo_kernel)
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, graphs, io as ellc_io, pipeline, runner)
-    from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
     from egomotion_with_local_loop_closures_tpu_torch.graph import ba
     from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
         import PEAK_BYTES_S, PEAK_F32_S, device_ms
@@ -1237,25 +1359,27 @@ def main() -> int:
         print(f"triton does not import: {e}")
     print(f"gpu (name, power limit): {gpu}")
 
-    phase("2 build K3, K1 and K2")
+    phase("2 build K3, K1, K2 and the merge")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(3) as pool:
-        lib, lib_k1, lib_k2 = pool.map(lambda m: m.build(), (
-            reg_kernel, gn_kernel, stereo_kernel))
+    with ThreadPoolExecutor(4) as pool:
+        lib, lib_k1, lib_k2, lib_mg = pool.map(lambda m: m.build(), (
+            reg_kernel, gn_kernel, stereo_kernel, propagate_kernel))
     reg_kernel._library()
     gn_kernel._library()
     stereo_kernel._library()
+    propagate_kernel._library()
     print(f"built {os.path.relpath(lib, ROOT)}, "
-          f"{os.path.relpath(lib_k1, ROOT)} and "
-          f"{os.path.relpath(lib_k2, ROOT)} in "
+          f"{os.path.relpath(lib_k1, ROOT)}, "
+          f"{os.path.relpath(lib_k2, ROOT)} and "
+          f"{os.path.relpath(lib_mg, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits"]).splitlines()[0])
     cuobjdump = os.path.join(os.path.dirname(reg_kernel._find_nvcc()),
                              "cuobjdump")
-    for lib_k in (lib_k1, lib_k2):
+    for lib_k in (lib_k1, lib_k2, lib_mg):
         k_sass = sass_counts(lib_k, cuobjdump)
         for fn, res in kernel_resources(lib_k, cuobjdump).items():
             print(f"{fn}: {res}; {sum(k_sass[fn])} SASS instructions")
@@ -1432,10 +1556,7 @@ def main() -> int:
     tk = load_tool("time_k1_levels")
     img0, depth0, var0, img1 = (torch.as_tensor(a, device=dev) for a in
                                 tk.gn_planes(5, cfg.shape))
-    depths0, vars0 = fusion.build_depth_var_pyramid(depth0, var0,
-                                                    cfg.num_levels)
-    seeded_kf = tuple(alignment.KeyframeLevel(*lv) for lv in zip(
-        pyramid.build_pyramid(img0, cfg.num_levels), depths0, vars0))
+    seeded_kf = alignment.make_keyframe_levels(img0, depth0, var0, cfg)
     seeded_cur = alignment.make_current_levels(pyramid.build_pyramid(
         img1, cfg.num_levels))
     seeded_pose = torch.tensor([2e-3, -1e-3, 1.5e-3, 4e-3, 7e-3, -3e-3],
@@ -1498,16 +1619,59 @@ def main() -> int:
     check(all(n > 0 for n in on_real.values()),
           "the real frames exercise every EKF branch")
 
+    phase("3d propagate's merge kernels against their plain twin: one "
+          "state, 8 videos, 20 trials and a zoom-out, at 270x480")
+    # phase 3's keyframe (the state after frame 8) propagated into frame 9
+    # at its tracked pose, as a keyframe step propagates
+    img9 = torch.as_tensor(frames[8], device=dev)
+    mg9 = pyramid.max_abs_gradient(*pyramid.gradients(img9))
+
+    def merge_case(B, dy, dx, dpose, c=cfg):
+        """candidates() of B copies of phase 3's state and keyframe, copy b
+        rolled by (dy b, dx b) pixels, its pose moved by dpose b."""
+        if B is None:
+            return (propagate.candidates(st.depth, st.kf.images[0], img9,
+                                         mg9, real_pose + dpose, c),
+                    cfg.shape)
+        depth = DepthMapState(**{n: torch.stack([
+            torch.roll(getattr(st.depth, n), (dy * b, dx * b), (0, 1))
+            for b in range(B)]) for n in FIELDS})
+        old = torch.stack([torch.roll(st.kf.images[0], (dy * b, dx * b),
+                                      (0, 1)) for b in range(B)])
+        poses = torch.stack([real_pose + dpose * b for b in range(B)])
+        return (propagate.candidates(depth, old, img9, mg9, poses, cfg),
+                (B,) + cfg.shape)
+    zoom = torch.zeros(6, device=dev)
+    zoom[5] = MERGE_ZOOM
+    worst_mg, timed_mg, fans_mg = merge_phase(
+        [(label, *merge_case(*spec), is_timed) for label, spec, is_timed in (
+            ("one state", (None, 0, 0, torch.zeros(6, device=dev)), True),
+            (f"{K2_VIDEOS} videos", (K2_VIDEOS, 1, 2,
+                                     torch.full((6,), 2e-4, device=dev)),
+             True),
+            (f"{RECOVERY_BATCH} trials", (RECOVERY_BATCH, 7, 23,
+                                          torch.zeros(6, device=dev)), True),
+            (f"zoom-out (the camera {MERGE_ZOOM:g} back)",
+             (None, 0, 0, zoom, cfg.replace(max_diff_constant=1e6)),
+             False))], cfg, gpu)
+    chunk = int(re.search(r"kChunk = (\d+);",
+                          propagate_kernel.SOURCE.read_text()).group(1))
+    check(fans_mg["zoom-out"] > chunk, f"the zoom-out's largest fan-in "
+          f"{fans_mg['zoom-out']} passes the kernel's {chunk} a walk")
+
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
     expect = {"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
     check(n_track + n_kf == K1_STEPS["gn_run_sequence"][0],
           "K1's hand count of phase 4 is the schedule's")
+    check(n_kf == MERGE_CALLS["gn_run_sequence"],
+          "the merge's hand count of phase 4 is the schedule's")
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.synchronize()
         reg_kernel.reset_launches()
         gn_kernel.reset_launches()
         stereo_kernel.reset_launches()
+        propagate_kernel.reset_launches()
         t0 = time.perf_counter()
         res = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
                                   out_dir=out)
@@ -1516,9 +1680,12 @@ def main() -> int:
         launches = dict(reg_kernel.launches)
         launches_k1 = {"gn_run_sequence": dict(gn_kernel.launches)}
         launches_k2 = {"gn_run_sequence": dict(stereo_kernel.launches)}
+        launches_mg = {"gn_run_sequence": dict(propagate_kernel.launches)}
         warmups = {"gn_run_sequence": dict(reg_kernel.warmup_launches)}
         warmups_k1 = {"gn_run_sequence": dict(gn_kernel.warmup_launches)}
         warmups_k2 = {"gn_run_sequence": dict(stereo_kernel.warmup_launches)}
+        warmups_mg = {"gn_run_sequence": dict(
+            propagate_kernel.warmup_launches)}
         poses_file = ellc_io.read_pose_file(os.path.join(out,
                                                          "poses_orig.txt"))
         matches = ellc_io.read_pose_file(os.path.join(out, "matchframes.txt"))
@@ -1538,6 +1705,10 @@ def main() -> int:
           and launches_k2["gn_run_sequence"]
           == k2_expected("gn_run_sequence"),
           "K2 launch counts match the frame schedule")
+    print(f"merge launches {launches_mg['gn_run_sequence']}, expected "
+          f"{merge_expected('gn_run_sequence')} (one a keyframe step)")
+    check(launches_mg["gn_run_sequence"] == merge_expected("gn_run_sequence"),
+          "the merge kernels' launch counts match one a keyframe step")
     check(len(res.frame_ids) == MAIN_FRAMES - 1, "every frame tracked")
     check(len(matches) == n_kf, "one matchframes line per keyframe")
     check(poses_file.shape == (MAIN_FRAMES - 1, 10), "poses_orig.txt shape")
@@ -1563,8 +1734,8 @@ def main() -> int:
 
     # intervals_per_dispatch: outputs read every 4 intervals (the default
     # above) against every interval, in turns 1/4/4/1 on the same frames;
-    # the poses are compared, not held equal: propagate's float atomics
-    # part two runs of either by a few units in the last place
+    # every turn must give the first run's bits: no step sums with a float
+    # atomic, so a run on the card reproduces
     turns4 = []
     for ipd in (1, 4, 4, 1):
         r = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
@@ -1576,12 +1747,17 @@ def main() -> int:
         check(r.frame_ids.tolist() == res.frame_ids.tolist()
               and r.kf_ids.tolist() == res.kf_ids.tolist(),
               f"intervals_per_dispatch {ipd}: the same frames and keyframes")
+        same = [np.array_equal(getattr(r, f), getattr(res, f))
+                for f in ("world_poses", "seeds", "rescales")]
+        check(all(same), f"intervals_per_dispatch {ipd}: poses, seeds and "
+              f"rescales bit-equal to the first run ({same})")
     d4 = max(float(np.abs(t[3].world_poses - res.world_poses).max())
              for t in turns4)
     print("intervals_per_dispatch in turns 1/4/4/1, frames/s after the "
           "first interval (reads): " + ", ".join(
               f"{ipd}: {v:.3f} ({n})" for ipd, v, n, _ in turns4)
-          + f"; max |pose diff| from the run above {d4:.3g}; on {gpu}")
+          + f"; max |pose diff| from the run above {d4:.3g} (every turn "
+          f"bit-equal to it); on {gpu}")
 
     phase("5 golden: JAX package output, first 17 frames")
     with open(GOLDEN) as f:
@@ -1616,6 +1792,7 @@ def main() -> int:
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
+    propagate_kernel.reset_launches()
     t0 = time.perf_counter()
     res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]),
                                lc_cfg.replace(do_sim3_refine=True), dev,
@@ -1626,9 +1803,12 @@ def main() -> int:
     launches6 = dict(reg_kernel.launches)
     launches_k1["lc_bootstrap"] = dict(gn_kernel.launches)
     launches_k2["lc_bootstrap"] = dict(stereo_kernel.launches)
+    launches_mg["lc_bootstrap"] = dict(propagate_kernel.launches)
     warmups["lc_bootstrap"] = dict(reg_kernel.warmup_launches)
     warmups_k1["lc_bootstrap"] = dict(gn_kernel.warmup_launches)
     warmups_k2["lc_bootstrap"] = dict(stereo_kernel.warmup_launches)
+    warmups_mg["lc_bootstrap"] = dict(
+        propagate_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['lc_bootstrap']}, expected "
           f"{k1_expected('lc_bootstrap')}")
     check(launches_k1["lc_bootstrap"] == k1_expected("lc_bootstrap"),
@@ -1637,6 +1817,10 @@ def main() -> int:
           f"{k2_expected('lc_bootstrap')}")
     check(launches_k2["lc_bootstrap"] == k2_expected("lc_bootstrap"),
           "K2 launch counts match the LC bootstrap")
+    print(f"merge launches {launches_mg['lc_bootstrap']}, expected "
+          f"{merge_expected('lc_bootstrap')} (one a keyframe step of the LC bootstrap)")
+    check(launches_mg["lc_bootstrap"] == merge_expected("lc_bootstrap"),
+          "the merge kernels' launch counts match one a keyframe step of the LC bootstrap")
     print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
           f"batch(es), {len(res6.frame_ids)} corrected poses in "
           f"{wall6:.3f} s; phases (s) "
@@ -1670,16 +1854,19 @@ def main() -> int:
     # package's corrected poses and edges), then the run's
     g_sim3 = np.asarray(lc_golden["sim3_world_poses"])
     t0 = time.perf_counter()
-    own = ellc_lc._sim3_refine_trajectory(
+    own, own2 = (ellc_lc._sim3_refine_trajectory(
         np.asarray(lc_golden["frame_ids"]),
         np.asarray(lc_golden["world_poses"], np.float32),
         [types.SimpleNamespace(**e) for e in g_edges],
-        lc_cfg.replace(do_sim3_refine=True), dev)
-    sim3_s = time.perf_counter() - t0
+        lc_cfg.replace(do_sim3_refine=True), dev) for _ in range(2))
+    sim3_s = (time.perf_counter() - t0) / 2
+    check(np.array_equal(own, own2), "two Sim(3) refinements of the golden "
+          "inputs give the same nodes bit for bit")
     d_own = float(np.abs(own - g_sim3).max())
     d_run = float(np.abs(res6.sim3_world_poses - g_sim3).max())
     print(f"Sim(3): on the golden file's inputs max |refined pose diff| "
-          f"{d_own:.3g} (tol 1e-4) in {sim3_s:.3f} s; the run's refined "
+          f"{d_own:.3g} (tol 1e-4) in {sim3_s:.3f} s a refinement (two "
+          f"runs bit-equal); the run's refined "
           f"poses {d_run:.3g} (tol 1e-2), moved up to "
           f"{float(np.abs(res6.sim3_world_poses - res6.world_poses).max()):.3g}"
           f" from the corrected ones; sim3 phase {stats6['sim3']:.3f} s")
@@ -1695,6 +1882,7 @@ def main() -> int:
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
+    propagate_kernel.reset_launches()
     t0 = time.perf_counter()
     res7 = ellc_lc.run_ellc_lc(iter(lc_frames[:LC_FRAMES]), lc_cfg, dev,
                                stats=stats7)
@@ -1703,9 +1891,12 @@ def main() -> int:
     launches7 = dict(reg_kernel.launches)
     launches_k1["lc_mode"] = dict(gn_kernel.launches)
     launches_k2["lc_mode"] = dict(stereo_kernel.launches)
+    launches_mg["lc_mode"] = dict(propagate_kernel.launches)
     warmups["lc_mode"] = dict(reg_kernel.warmup_launches)
     warmups_k1["lc_mode"] = dict(gn_kernel.warmup_launches)
     warmups_k2["lc_mode"] = dict(stereo_kernel.warmup_launches)
+    warmups_mg["lc_mode"] = dict(
+        propagate_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['lc_mode']}, expected "
           f"{k1_expected('lc_mode')} (143 tracked and 143 replayed frames)")
     check(launches_k1["lc_mode"] == k1_expected("lc_mode"),
@@ -1714,6 +1905,10 @@ def main() -> int:
           f"{k2_expected('lc_mode')} (track_refine steps, replays included)")
     check(launches_k2["lc_mode"] == k2_expected("lc_mode"),
           "K2 launch counts match the LC schedule with replays")
+    print(f"merge launches {launches_mg['lc_mode']}, expected "
+          f"{merge_expected('lc_mode')} (the LC keyframe steps with replays)")
+    check(launches_mg["lc_mode"] == merge_expected("lc_mode"),
+          "the merge kernels' launch counts match the LC keyframe steps with replays")
     n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
                  == 0)
     print(f"K3 launches {launches7}, expected {expect7}; "
@@ -1748,6 +1943,7 @@ def main() -> int:
     reg_kernel.reset_launches()
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
+    propagate_kernel.reset_launches()
     t0 = time.perf_counter()
     res8 = runner.run_sequence(iter(rec_frames), rec_cfg, dev)
     torch.cuda.synchronize()
@@ -1755,9 +1951,12 @@ def main() -> int:
     launches8 = dict(reg_kernel.launches)
     launches_k1["recovery"] = dict(gn_kernel.launches)
     launches_k2["recovery"] = dict(stereo_kernel.launches)
+    launches_mg["recovery"] = dict(propagate_kernel.launches)
     warmups["recovery"] = dict(reg_kernel.warmup_launches)
     warmups_k1["recovery"] = dict(gn_kernel.warmup_launches)
     warmups_k2["recovery"] = dict(stereo_kernel.warmup_launches)
+    warmups_mg["recovery"] = dict(
+        propagate_kernel.warmup_launches)
     print(f"K1 launches {launches_k1['recovery']}, expected "
           f"{k1_expected('recovery')}")
     check(launches_k1["recovery"] == k1_expected("recovery"),
@@ -1766,6 +1965,10 @@ def main() -> int:
           f"{k2_expected('recovery')}")
     check(launches_k2["recovery"] == k2_expected("recovery"),
           "K2 launch counts match the recovery schedule")
+    print(f"merge launches {launches_mg['recovery']}, expected "
+          f"{merge_expected('recovery')} (the keyframe steps and the two batched trials)")
+    check(launches_mg["recovery"] == merge_expected("recovery"),
+          "the merge kernels' launch counts match the keyframe steps and the two batched trials")
     recs = res8.extra["recoveries"]
     pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
     g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
@@ -1842,14 +2045,18 @@ def main() -> int:
             reg_kernel.reset_launches()
             gn_kernel.reset_launches()
             stereo_kernel.reset_launches()
+            propagate_kernel.reset_launches()
         states9, outs9, wall9, peak9 = batched_run(V)
         if V == BATCH_VIDEOS:
             launches9 = dict(reg_kernel.launches)
             launches_k1["batched_videos"] = dict(gn_kernel.launches)
             launches_k2["batched_videos"] = dict(stereo_kernel.launches)
+            launches_mg["batched_videos"] = dict(propagate_kernel.launches)
             warmups["batched_videos"] = dict(reg_kernel.warmup_launches)
             warmups_k1["batched_videos"] = dict(gn_kernel.warmup_launches)
             warmups_k2["batched_videos"] = dict(stereo_kernel.warmup_launches)
+            warmups_mg["batched_videos"] = dict(
+                propagate_kernel.warmup_launches)
         pred = predicted[V].peak_bytes
         pools = {r["pool"]: r["pool_bytes"] for r in graphs.stats()
                  if r["lead"] == (V,)}
@@ -1879,6 +2086,10 @@ def main() -> int:
           f"{BATCH_VIDEOS} videos)")
     check(launches_k2["batched_videos"] == k2_expected("batched_videos"),
           "the videos share each K2 launch")
+    print(f"merge launches {launches_mg['batched_videos']}, expected "
+          f"{merge_expected('batched_videos')} (one video's count for all videos)")
+    check(launches_mg["batched_videos"] == merge_expected("batched_videos"),
+          "the merge kernels' launch counts match one video's count for all videos")
     poses9 = torch.cat([o.pose_wrt_world for o in outs9], 1).cpu().numpy()
     seeds9 = torch.cat([o.seeds for o in outs9], 1).cpu().numpy()
     check(poses9.shape == (BATCH_VIDEOS, n_per - 1, 6), "batched outputs")
@@ -1966,12 +2177,13 @@ def main() -> int:
         # the CLI in its own process; the wrapper resets K3's counts just
         # before cli.main and prints them just after
         code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-                f"from {PKG}.ops import gn_kernel, reg_kernel, "
-                f"stereo_kernel; "
+                f"from {PKG}.ops import gn_kernel, propagate_kernel, "
+                f"reg_kernel, stereo_kernel; "
                 f"from {PKG}.runtime import cli; "
                 f"reg_kernel.reset_launches(); "
                 f"gn_kernel.reset_launches(); "
                 f"stereo_kernel.reset_launches(); "
+                f"propagate_kernel.reset_launches(); "
                 f"rc = cli.main(sys.argv[1:]); "
                 f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
                 f"print('K3 warm-up launches ' + "
@@ -1982,6 +2194,10 @@ def main() -> int:
                 f"print('K2 launches ' + json.dumps(stereo_kernel.launches)); "
                 f"print('K2 warm-up launches ' + "
                 f"json.dumps(stereo_kernel.warmup_launches)); "
+                f"print('merge launches ' + "
+                f"json.dumps(propagate_kernel.launches)); "
+                f"print('merge warm-up launches ' + "
+                f"json.dumps(propagate_kernel.warmup_launches)); "
                 f"sys.exit(rc)")
         argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
                 str(syn_cfg.rows), "--cols", str(syn_cfg.cols),
@@ -2005,6 +2221,10 @@ def main() -> int:
             r"K2 launches (\{.*\})", proc.stdout).group(1))
         warmups_k2["synthetic"] = json.loads(re.search(
             r"K2 warm-up launches (\{.*\})", proc.stdout).group(1))
+        launches_mg["synthetic"] = json.loads(re.search(
+            r"merge launches (\{.*\})", proc.stdout).group(1))
+        warmups_mg["synthetic"] = json.loads(re.search(
+            r"merge warm-up launches (\{.*\})", proc.stdout).group(1))
         gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
         orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
     ids10 = orig10[:, 0].astype(int)
@@ -2030,6 +2250,10 @@ def main() -> int:
           and launches_k2["synthetic"] == k2_expected("synthetic"),
           f"K2 launch counts {launches_k2['synthetic']} match the synthetic "
           f"schedule's {k2_expected('synthetic')}")
+    check(n_kf == MERGE_CALLS["synthetic"]
+          and launches_mg["synthetic"] == merge_expected("synthetic"),
+          f"the merge kernels' launch counts {launches_mg['synthetic']} "
+          f"match the synthetic schedule's {merge_expected('synthetic')}")
     check(ids10.tolist() == syn_golden["frame_ids"], "synthetic frame ids")
     check(bool(np.isfinite(orig10).all()), "synthetic poses finite")
     check(d_gt <= TRAJ_TOL, "poses_gt.txt matches the JAX trajectory")
@@ -2232,85 +2456,65 @@ def main() -> int:
                                          (x != y).sum().float(), zero]))
         return torch.stack(rows).cpu()
 
+    def kernel_counts():
+        return (dict(reg_kernel.launches), dict(gn_kernel.launches),
+                dict(stereo_kernel.launches), dict(propagate_kernel.launches))
+
+    def reset_counts():
+        for mod in (reg_kernel, gn_kernel, stereo_kernel, propagate_kernel):
+            mod.reset_launches()
+
     def graphed_vs_eager(label, start, imgs, c, replay=False, rots=None):
         """The interval ``imgs`` from ``start``, graphed and eager: every
-        track_refine step bit-equal, with as many K3 launches from the
-        graph's nodes as the eager step's wrapper calls; then the keyframe
-        step, whose propagate sums with float atomics (index_add_) in a
-        varying order, in KF_ROUNDS rounds of KF_RUNS eager runs and
-        KF_RUNS replays: each tensor of the graphed step, from the
-        nearest eager run, within KF_ROOM times the largest difference of
-        two eager runs of it plus KF_ULPS units in the last place of its
-        largest magnitude, and with at most KF_ROOM times as many
-        non-float (or NaN) elements differing, in every round."""
+        track_refine step bit-equal, with as many K3, K1, K2 and merge
+        launches from the graph's nodes as the eager step's wrapper calls;
+        then the keyframe step twice graphed and twice eager, all four
+        bit-equal, with one launch of each merge kernel."""
         g = e = start
         for k in range(len(imgs) - 1):
             rot = None if rots is None else rots[k]
-            reg_kernel.reset_launches()
-            gn_kernel.reset_launches()
-            stereo_kernel.reset_launches()
+            reset_counts()
             g, og = pipeline.track_refine_step(g, imgs[k], c, replay, rot)
-            n_g = (dict(reg_kernel.launches), dict(gn_kernel.launches),
-                   dict(stereo_kernel.launches))
-            reg_kernel.reset_launches()
-            gn_kernel.reset_launches()
-            stereo_kernel.reset_launches()
+            n_g = kernel_counts()
+            reset_counts()
             e, oe = pipeline._track_refine_step(e, imgs[k], c, replay, rot)
-            n_e = (dict(reg_kernel.launches), dict(gn_kernel.launches),
-                   dict(stereo_kernel.launches))
+            n_e = kernel_counts()
             torch.cuda.synchronize()
-            check(n_g == n_e and n_e[2] == {"stereo_observe": 1},
-                  f"{label}: K3, K1 and K2 launches of a replay {n_g} equal "
-                  f"the eager step's {n_e}, one K2 launch")
+            check(n_g == n_e and n_e[2] == {"stereo_observe": 1}
+                  and sum(n_e[3].values()) == 0,
+                  f"{label}: K3, K1, K2 and merge launches of a replay {n_g} "
+                  f"equal the eager step's {n_e}, one K2 launch, no merge")
             d = leaf_diffs((g, og), (e, oe))
             check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
                   f"graphed equals eager bit for bit (max |diff| "
                   f"{float(d[:, 0].max()):.3g}, {int(d[:, 2].sum())} "
                   f"elements differ)")
         rot = None if rots is None else rots[-1]
-        n = KF_RUNS
-        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-        passed, worst = 0, 0.0
-        for r in range(KF_ROUNDS):
-            kg = [pipeline.keyframe_step(g, imgs[-1], c, replay, rot)
-                  for _ in range(n)]
-            ke = [pipeline._keyframe_step(e, imgs[-1], c, replay, rot)
-                  for _ in range(n)]
-            torch.cuda.synchronize()
-            ee = torch.stack([leaf_diffs(ke[i], ke[j])
-                              for i, j in pairs]).amax(0)
-            gg = torch.stack([leaf_diffs(kg[i], kg[j])
-                              for i, j in pairs]).amax(0)
-            ge = torch.stack([leaf_diffs(kg[0], x) for x in ke]).amin(0)
-            bound = KF_ROOM * ee[:, 0] + KF_ULPS * ee[:, 3]
-            ok = (ge[:, 0] <= bound) & (ge[:, 2] <= KF_ROOM * ee[:, 2])
-            passed += bool(ok.all())
-            worst = max(worst, float((ge[:, 0] / bound).nan_to_num(0.0).max()))
-            names = leaf_names(kg[0])
-            for li in (ge[:, 0] > KF_ROOM * ee[:, 0]).nonzero().flatten(
-                    ).tolist():
-                print(f"{label}, round {r + 1}, {names[li]}: graph-nearest "
-                      f"eager {ge[li, 0]:.3g} ({ge[li, 1]:.0f} ulp) against "
-                      f"an eager spread of {ee[li, 0]:.3g}: within "
-                      f"{KF_ULPS} ulp of the largest magnitude "
-                      f"({KF_ULPS * ee[li, 3]:.3g}): {bool(ok[li])}")
-            if r == 0:
-                for li in (ee + gg + ge)[:, :3].sum(1).nonzero().flatten(
-                        ).tolist():
-                    print(f"{label}, {names[li]}: eager-eager "
-                          f"{ee[li, 0]:.3g} ({ee[li, 1]:.0f} ulp, "
-                          f"{ee[li, 2]:.0f} el.), graph-graph "
-                          f"{gg[li, 0]:.3g} ({gg[li, 1]:.0f} ulp, "
-                          f"{gg[li, 2]:.0f}), graph-nearest eager "
-                          f"{ge[li, 0]:.3g} ({ge[li, 1]:.0f} ulp, "
-                          f"{ge[li, 2]:.0f})")
+        runs, counts = [], []
+        for step in (pipeline.keyframe_step, pipeline._keyframe_step) * 2:
+            reset_counts()
+            runs.append(step(g if step is pipeline.keyframe_step else e,
+                             imgs[-1], c, replay, rot))
+            counts.append(kernel_counts())
+        torch.cuda.synchronize()
+        check(all(n == counts[1] for n in counts)
+              and counts[1][3] == {"propagate_link": 1,
+                                   "propagate_merge": 1},
+              f"{label}: the keyframe step's launches, graphed and eager, "
+              f"{counts}: equal, one of each merge kernel")
+        names = leaf_names(runs[0])
+        for i, j, what in ((0, 1, "graph-eager"), (2, 0, "graph-graph"),
+                           (3, 1, "eager-eager")):
+            d = leaf_diffs(runs[i], runs[j])
+            bad = d[:, :3].sum(1).nonzero().flatten().tolist()
+            check(not bad, f"{label}: keyframe step {what} bit for bit; "
+                  f"differing tensors " + ", ".join(
+                      f"{names[li]} ({d[li, 0]:.3g}, {d[li, 1]:.0f} ulp, "
+                      f"{d[li, 2]:.0f} el.)" for li in bad))
         print(f"{label}: {len(imgs) - 1} track_refine steps graphed equal "
-              f"eager bit for bit; keyframe step within {KF_ROOM} times "
-              f"each tensor's eager spread plus {KF_ULPS} ulp of its "
-              f"largest magnitude in {passed} of {KF_ROUNDS} rounds of {n} "
-              f"runs (largest ratio to that bound {worst:.3g})")
-        check(passed == KF_ROUNDS, f"{label}: the graphed keyframe step is "
-              f"within the eager runs' spread")
+              f"eager bit for bit; the keyframe step's two replays and two "
+              f"eager runs equal bit for bit in all {len(names)} tensors; "
+              f"launches of a keyframe step {counts[0]}")
 
     imgs14 = [torch.as_tensor(f, device=dev) for f in frames[1:K + 1]]
     graphed_vs_eager("one video", pipeline.init_pipeline(frames[0], cfg, dev),
@@ -2337,10 +2541,16 @@ def main() -> int:
               f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
               f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
               f"(warm-up {r['warmup_k1']}), K2 nodes {r['k2']} (warm-up "
-              f"{r['warmup_k2']}); capture "
+              f"{r['warmup_k2']}), merge nodes {r['merge']} (warm-up "
+              f"{r['warmup_merge']}); capture "
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
+        per_call = int(r["step"] == "keyframe_step")
+        check(r["merge"] == {"propagate_link": per_call,
+                             "propagate_merge": per_call},
+              f"graph {r['step']}: {per_call} node of each merge kernel, "
+              f"found by name")
     print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
           f"{sum(pools14.values()) / 2**20:.1f} MiB")
 
@@ -2487,7 +2697,32 @@ def main() -> int:
                     "plain_ms": timed_k2[K2_VIDEOS][1],
                     "bound_ms": timed_k2[K2_VIDEOS][2],
                     "bound_by": timed_k2[K2_VIDEOS][3]}}]
-    print(json.dumps({"kernels": k3_rows + k1_rows + k2_rows}))
+    # the merge: one call's memset and two launches on phase 3d's one
+    # state; 8 videos and 20 trials under "batched"
+    one_mg = timed_mg["one state"]
+    mg_rows = [
+        {"name": "propagate_kernel.merge", "route": "cuda",
+         "source": os.path.join(PKG, "csrc", "propagate_kernel.cu"),
+         "replaces": "egomotion_with_local_loop_closures_tpu/depth/"
+                     "propagate.py:101",
+         "launches": launches_mg["gn_run_sequence"]["propagate_merge"],
+         "launches_by_path": {k: v["propagate_merge"]
+                              for k, v in launches_mg.items()},
+         "warmup_launches_by_path": {k: v["propagate_merge"]
+                                     for k, v in warmups_mg.items()},
+         "kernels_a_call": ["propagate_link", "propagate_merge"],
+         "max_abs_err": worst_mg,
+         "ms": one_mg[0], "plain_ms": one_mg[2], "bound_ms": one_mg[3],
+         "bound_by": one_mg[4], "library_ms": None,
+         "index_add_ms": one_mg[1],
+         "plain_ms_of": "one eager call of the twin, its host read "
+                        "included",
+         "batched": {label: {"ms": t[0], "index_add_ms": t[1],
+                             "plain_ms": t[2], "bound_ms": t[3],
+                             "bound_by": t[4]}
+                     for label, t in timed_mg.items()
+                     if label != "one state"}}]
+    print(json.dumps({"kernels": k3_rows + k1_rows + k2_rows + mg_rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ Port of ``egomotion_with_local_loop_closures_tpu/depth/propagate.py``
 (``src/DepthPropagation.cpp``):
 
 - :func:`propagate` -- ``propagateDepth`` (:1003-1157), with the JAX
-  package's order-independent merge: per target cell the nearest (largest
-  inverse depth) candidate wins, and every candidate compatible with it is
-  fused by inverse variance (one scatter-max and four scatter-adds).
+  package's merge: per target cell the nearest (largest inverse depth)
+  candidate wins, and every candidate compatible with it is fused by
+  inverse variance (``ops/propagate_kernel.py``).
 - :func:`fill_holes` -- ``fillDepthHoles`` (:1317-1432), with the
   reference's row-prefix validity score.
 - :func:`regularize` -- ``regularizeDepthMap`` (:1436-1543).
@@ -25,14 +25,16 @@ move only the last two dimensions, and :func:`propagate` merges each
 candidate into its own B-th of one flat (B*H*W) target space, so a batch
 gives each candidate what it would give alone.
 
-On CUDA, ``index_add_`` sums in atomic order, so the merged inverse
-depth, variance and validity of :func:`propagate` may differ from run to
-run in the last bits (a few ulp of the float32 sums).
+The merge sums each cell's compatible candidates in ascending source
+index, on the CPU (the plain twin) and on the card (the kernels of
+``ops/propagate_kernel.py``) alike, so :func:`propagate` gives the same
+bits on both and from run to run.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
     DepthMapState)
 from egomotion_with_local_loop_closures_tpu_torch.geom import camera, lie
 from egomotion_with_local_loop_closures_tpu_torch.image import interp
+from egomotion_with_local_loop_closures_tpu_torch.ops import propagate_kernel
 
 
 def propagate(state: DepthMapState,
@@ -57,7 +60,25 @@ def propagate(state: DepthMapState,
     and ``pose_new_wrt_old`` is (B, 6).  The new keyframe
     (``new_kf_image``, ``new_kf_maxgrad``) is either shared, (H, W), as
     for connection recovery's candidates, or one per state, (B, H, W), as
-    for the videos of the batched pipeline."""
+    for the videos of the batched pipeline.
+
+    :func:`candidates` reprojects and gates; the merge is
+    ``ops/propagate_kernel.py::merge``: its CUDA kernels for CUDA
+    tensors, its plain twin for CPU tensors."""
+    return propagate_kernel.merge(
+        *candidates(state, old_kf_image, new_kf_image, new_kf_maxgrad,
+                    pose_new_wrt_old, cfg), state.idepth.shape, cfg)
+
+
+def candidates(state: DepthMapState, old_kf_image: torch.Tensor,
+               new_kf_image: torch.Tensor, new_kf_maxgrad: torch.Tensor,
+               pose_new_wrt_old: torch.Tensor, cfg: ELLCConfig
+               ) -> Tuple[torch.Tensor, ...]:
+    """The front half of :func:`propagate` (DepthPropagation.cpp:1040-1086):
+    every source pixel's flat target cell (int64, candidate b's cells from
+    b*H*W on), whether it is a candidate (valid, in the image, passing the
+    photometric and gradient gates), its inverse depth and inflated
+    variance in the new keyframe, and its validity; each flat (N,)."""
     H, W = old_kf_image.shape[-2:]
     lead = old_kf_image.shape[:-2]
     dev = old_kf_image.device
@@ -109,54 +130,8 @@ def propagate(state: DepthMapState,
     ratio = new_idepth / ids
     ratio4 = (ratio * ratio) * (ratio * ratio)
     new_var = ratio4 * state.idepth
-
-    N = tgt.numel()
-    flat_id = torch.where(cand, new_idepth, float("-inf")).reshape(-1)
-    flat_var = new_var.reshape(-1)
-
-    def scatter_max(init, vals):
-        return torch.full((N,), init, dtype=torch.float32, device=dev
-                          ).scatter_reduce(0, tgt, vals, "amax",
-                                           include_self=True)
-
-    def scatter_add(vals):
-        return torch.zeros((N,), dtype=torch.float32, device=dev
-                           ).index_add_(0, tgt, vals)
-
-    winner = scatter_max(float("-inf"), flat_id)
-    w_id = winner[tgt]
-    win_var_num = scatter_max(
-        0.0, torch.where(flat_id == w_id, flat_var, float("-inf")))
-    w_var = win_var_num[tgt]
-    diff = w_id - flat_id
-    compat = cand.reshape(-1) & (cfg.diff_fac_prop_merge * diff * diff
-                                 <= flat_var + w_var)
-
-    cvar = torch.where(torch.abs(flat_var) > 1e-12, flat_var, 1e-12)
-    ivar = torch.where(compat, 1.0 / cvar, 0.0)
-    safe_id = torch.where(compat, flat_id, 0.0)
-    sum_ivar = scatter_add(ivar)
-    sum_id = scatter_add(ivar * safe_id)
-    sum_validity = scatter_add(
-        torch.where(compat, state.validity.reshape(-1), 0.0))
-    count = scatter_add(compat.to(torch.float32))
-
-    has = count > 0
-    merged_id = torch.where(has, sum_id / torch.where(has, sum_ivar, 1.0), 0.0)
-    merged_var = torch.where(has, 1.0 / torch.where(has, sum_ivar, 1.0), 0.0)
-    merged_validity = torch.clamp_max(
-        sum_validity,
-        cfg.validity_counter_max + cfg.validity_counter_max_variable)
-
-    shp = state.idepth.shape
-    return DepthMapState(
-        idepth=merged_id.reshape(shp),
-        var=merged_var.reshape(shp),
-        idepth_smoothed=torch.full(shp, -1.0, device=dev),
-        var_smoothed=torch.full(shp, -1.0, device=dev),
-        validity=merged_validity.reshape(shp),
-        blacklisted=torch.zeros(shp, dtype=torch.int32, device=dev),
-        valid=has.reshape(shp))
+    return (tgt, cand.reshape(-1), new_idepth.reshape(-1),
+            new_var.reshape(-1), state.validity.reshape(-1))
 
 
 def _shift(a: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:

@@ -16,13 +16,17 @@ each damped Gauss-Newton iteration costs O(E + N):
    ``sim3.refine``;
 3. (J^T W J + lambda I) dx = J^T W r solved without forming the matrix:
    CG whose matvec gathers node blocks per edge, multiplies by the edge's
-   blocks and scatters back with ``index_add_``, preconditioned by the
-   inverted per-node 7x7 diagonal blocks;
+   blocks and sums them back per node, preconditioned by the inverted
+   per-node 7x7 diagonal blocks;
 4. node 0 fixed as the gauge by zeroing its tangent in the gradient, the
    matvec and the preconditioner.
 
 Every loop has a fixed trip count and nothing in an iteration reads a
-value back to the host.
+value back to the host.  The per-node sums (the gradient, the diagonal
+blocks, each matvec) gather each node's edge terms through a table built
+once a refine (:func:`_node_table`) and sum them over its columns: one
+fixed order, with no float atomic, so two runs on the card give the same
+nodes (``index_add_`` on CUDA adds in atomic order).
 
 ``refine_sharded`` splits the edges over the ranks of a process group:
 each rank linearizes its own edges, and every (N, 7) and (N, 7, 7)
@@ -87,27 +91,49 @@ def _gauge(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(v[:1]), v[1:]])
 
 
-def _assemble_grad_diag(r, Ji, Jj, w, ei, ej, N):
+def _node_table(ei: torch.Tensor, ej: torch.Tensor, N: int) -> torch.Tensor:
+    """(N, max degree): row n holds the indices of node n's edge ends in
+    the E ends i, then the E ends j, ascending, padded with 2E (a zero
+    row appended by :func:`_to_nodes`).  Reads the largest degree back to
+    the host: once a refine, the edges being fixed."""
+    E = ei.numel()
+    ends = torch.cat([ei, ej]).long()
+    nodes, order = torch.sort(ends, stable=True)
+    deg = torch.bincount(ends, minlength=N)
+    start = torch.cumsum(deg, 0) - deg
+    rank = torch.arange(2 * E, device=ei.device) - start[nodes]
+    table = torch.full((N, max(int(deg.max()) if E else 0, 1)), 2 * E,
+                       dtype=torch.int64, device=ei.device)
+    table[nodes, rank] = order
+    return table
+
+
+def _to_nodes(table: torch.Tensor, ti: torch.Tensor,
+              tj: torch.Tensor) -> torch.Tensor:
+    """Per node, the sum of the terms of its edge ends (``ti`` at each
+    edge's end i, ``tj`` at its end j, (E, ...)): a gather through
+    ``table`` and a sum over its columns, in one fixed order."""
+    both = torch.cat([ti, tj, ti.new_zeros((1,) + ti.shape[1:])])
+    return both[table].sum(1)
+
+
+def _assemble_grad_diag(r, Ji, Jj, w, table):
     """g = sum_e J^T w r per node, and the per-node 7x7 diagonal blocks D
     of J^T W J (the block-Jacobi preconditioner)."""
     gi = torch.einsum("eab,ea->eb", Ji, r) * w[:, None]
     gj = torch.einsum("eab,ea->eb", Jj, r) * w[:, None]
-    g = torch.zeros((N, 7), dtype=r.dtype, device=r.device)
-    g = g.index_add(0, ei, gi).index_add(0, ej, gj)
     Di = torch.einsum("eab,eac->ebc", Ji, Ji) * w[:, None, None]
     Dj = torch.einsum("eab,eac->ebc", Jj, Jj) * w[:, None, None]
-    D = torch.zeros((N, 7, 7), dtype=r.dtype, device=r.device)
-    return g, D.index_add(0, ei, Di).index_add(0, ej, Dj)
+    return _to_nodes(table, gi, gj), _to_nodes(table, Di, Dj)
 
 
-def _matvec(v, Ji, Jj, w, ei, ej, N, damping):
+def _matvec(v, Ji, Jj, w, ei, ej, table, damping):
     """(J^T W J + damping I) v without the matrix: one gather, per-edge
-    7x7 products, one scatter-add per end."""
+    7x7 products, each end's product summed back into its node."""
     u = (torch.einsum("eab,eb->ea", Ji, v[ei])
          + torch.einsum("eab,eb->ea", Jj, v[ej])) * w[:, None]
-    out = torch.zeros((N, 7), dtype=v.dtype, device=v.device)
-    out = out.index_add(0, ei, torch.einsum("eab,ea->eb", Ji, u))
-    out = out.index_add(0, ej, torch.einsum("eab,ea->eb", Jj, u))
+    out = _to_nodes(table, torch.einsum("eab,ea->eb", Ji, u),
+                    torch.einsum("eab,ea->eb", Jj, u))
     return _gauge(out + damping * v)
 
 
@@ -156,13 +182,14 @@ def refine(graph: Sim3Graph, num_iters: int = 10, cg_iters: int = 25,
     weighting of ``sim3.refine``, at O(E + N) an iteration."""
     N = graph.nodes.shape[0]
     ei, ej = graph.edges[:, 0], graph.edges[:, 1]
+    table = _node_table(ei, ej, N)
     nodes = graph.nodes
     hist = []
     for _ in range(num_iters):
         r, Ji, Jj, w = _linearize(nodes, graph.edges, graph.meas,
                                   graph.weights, huber_delta)
-        g, D = _assemble_grad_diag(r, Ji, Jj, w, ei, ej, N)
-        dx = _pcg(lambda v: _matvec(v, Ji, Jj, w, ei, ej, N, damping),
+        g, D = _assemble_grad_diag(r, Ji, Jj, w, table)
+        dx = _pcg(lambda v: _matvec(v, Ji, Jj, w, ei, ej, table, damping),
                   _gauge(g), _block_inv(D, damping), cg_iters)
         hist.append(torch.sqrt(torch.mean(w[:, None] * r * r)))
         nodes = _retract(nodes, dx)
@@ -210,15 +237,16 @@ def refine_sharded(graph: Sim3Graph, group=None, num_iters: int = 10,
                             graph.weights[mine])
     N = graph.nodes.shape[0]
     ei, ej = edges[:, 0], edges[:, 1]
+    table = _node_table(ei, ej, N)
     nodes = graph.nodes
     hist = []
     for _ in range(num_iters):
         r, Ji, Jj, w = _linearize(nodes, edges, meas, weights, huber_delta)
-        g, D = _assemble_grad_diag(r, Ji, Jj, w, ei, ej, N)
+        g, D = _assemble_grad_diag(r, Ji, Jj, w, table)
         g, D = _psum(g, group), _psum(D, group)
 
         def mv(v):
-            local = _matvec(v, Ji, Jj, w, ei, ej, N, 0.0)
+            local = _matvec(v, Ji, Jj, w, ei, ej, table, 0.0)
             return _gauge(_psum(local, group) + damping * v)
 
         dx = _pcg(mv, _gauge(g), _block_inv(D, damping), cg_iters)

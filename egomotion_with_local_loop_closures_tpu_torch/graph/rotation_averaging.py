@@ -225,3 +225,31 @@ def average_so3_graph(RR: np.ndarray, I: np.ndarray, device,
     out = np.tile(np.eye(3), (n, 1, 1))
     out[keep] = lie.matrix_from_quat(Q).cpu().numpy()
     return out
+
+
+def random_so3_graph(n: int, completeness: float = 0.5,
+                     sigma: float = 0.1, num_outliers: int = 0,
+                     seed: int = 0):
+    """Synthetic test graph, port of RandomSO3Graph.m: ground-truth
+    rotations, edges with Lie-algebra Gaussian noise, plus uniformly
+    random outlier edges, drawn from ``np.random.default_rng(seed)`` in
+    the JAX package's order (its rotations float32).  Returns (R_gt
+    (n, 3, 3), RR (m, 3, 3), I (2, m))."""
+    def exp(w):
+        return lie.exp_so3(torch.as_tensor(w, dtype=torch.float32)).numpy()
+
+    rng = np.random.default_rng(seed)
+    R_gt = exp(rng.normal(size=(n, 3)) * 0.8)
+    edges = [(i, i + 1) for i in range(n - 1)]   # ensure connectivity
+    for i in range(n):
+        for j in range(i + 2, n):
+            if rng.uniform() < completeness:
+                edges.append((i, j))
+    I = np.asarray(edges).T
+    m = I.shape[1]
+    noise = exp(rng.normal(size=(m, 3)) * sigma)
+    RR = np.einsum("mab,mbc,mdc->mad", noise, R_gt[I[1]], R_gt[I[0]])
+    if num_outliers:
+        idx = rng.choice(m, size=min(num_outliers, m), replace=False)
+        RR[idx] = exp(rng.uniform(-np.pi, np.pi, size=(len(idx), 3)))
+    return R_gt, RR, I

@@ -148,6 +148,13 @@ def inv_sim3(T: torch.Tensor) -> torch.Tensor:
     return _homogeneous(Ainv, -(Ainv @ T[..., :3, 3, None])[..., 0])
 
 
+def se3_to_sim3(xi6: torch.Tensor, log_scale: float = 0.0) -> torch.Tensor:
+    """Lift an se(3) twist [w v] to a Sim(3) 7-vector with the given
+    log-scale."""
+    xi6 = torch.as_tensor(xi6, dtype=torch.float32)
+    return torch.cat([xi6, xi6.new_tensor([log_scale])])
+
+
 # -------------------------------------------------------------- pose graph
 
 class Sim3Graph(NamedTuple):

@@ -127,6 +127,15 @@ def stack_levels(entries: List[LoopEntry], idx: List[int]):
     return kf, w
 
 
+def rms_rotation_error(pose_a, pose_b) -> float:
+    """The reference's 'rms_error': the euclidean distance of the rotation
+    components of two world twists (GlobalOptimize.cpp:421), on the host
+    in the poses' own precision.  The window's gates compute the same distance for every
+    entry at once on the device (``_gate_stats``)."""
+    d = np.asarray(pose_a[:3]) - np.asarray(pose_b[:3])
+    return float(np.sqrt(np.sum(d * d)))
+
+
 @dataclasses.dataclass
 class LoopCloser:
     """Sliding-window loop-closure detector + rematcher."""

@@ -4,7 +4,9 @@
 - ``gn_kernel``: K1, one Gauss-Newton iteration of the tracker as two
   kernels (``csrc/gn_kernel.cu``);
 - ``stereo_kernel``: K2, the epipolar line stereo and EKF observation of
-  one frame (``csrc/stereo_kernel.cu``).
+  one frame (``csrc/stereo_kernel.cu``);
+- ``propagate_kernel``: the candidate merge of keyframe depth
+  propagation, summed in a fixed order (``csrc/propagate_kernel.cu``).
 
 K1 and K2 share their device helpers, ``csrc/ellc_device.cuh``.  Each
 source is compiled with ``nvcc`` on first use, from this checkout, into

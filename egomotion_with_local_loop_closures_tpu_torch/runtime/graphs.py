@@ -30,16 +30,17 @@ from static copies of its inputs.  A replay
   recovery, checkpoints), and the next replay overwrites the pool.
 
 Nothing is read back to the host.  The step bodies launch the same kernels
-in the same order as when they run eagerly, so a replay gives the eager
-step's bits, up to the float atomics of ``propagate``'s ``index_add_`` in
-the keyframe step, which differ between two eager runs too.
+in the same order as when they run eagerly, and no step sums with a float
+atomic (the keyframe step's propagate merges in a fixed order,
+``ops/propagate_kernel.py``), so a replay gives the eager step's bits.
 
 The launch counts of the port's hand-written kernels, K3
-(``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``) and K2
-(``ops/stereo_kernel.launches``): the warm-up's launches are counted
+(``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``), K2
+(``ops/stereo_kernel.launches``) and propagate's merge
+(``ops/propagate_kernel.launches``): the warm-up's launches are counted
 apart (each module's ``warmup_launches``), and the capture's wrapper
 calls, which launch nothing, are counted only to check the graph: its
-K3, K1 and K2 kernel nodes, found by their functions' names, must be as
+kernel nodes of these, found by their functions' names, must be as
 many, wrapper by wrapper.  Each replay adds those nodes
 to ``launches``, so the counts are the launches of the replays, as on the
 eager path.
@@ -59,11 +60,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from egomotion_with_local_loop_closures_tpu_torch.ops import (
-    gn_kernel, reg_kernel, stereo_kernel)
+    gn_kernel, propagate_kernel, reg_kernel, stereo_kernel)
 
 # the modules of the hand-written kernels whose launches a graph counts,
-# by the name of the kernel: K3, K1 and K2
-_KERNELS = {"k3": reg_kernel, "k1": gn_kernel, "k2": stereo_kernel}
+# by the name of the kernel: K3, K1, K2 and propagate's merge
+_KERNELS = {"k3": reg_kernel, "k1": gn_kernel, "k2": stereo_kernel,
+            "merge": propagate_kernel}
 
 # CUgraphNodeType values of libcuda's graph API
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
@@ -127,8 +129,8 @@ class Graph:
     out_spec: Any
     # output leaf -> input leaf, for outputs that are static inputs
     through: Dict[int, int]
-    # per kernel ("k3", "k1", "k2"): its nodes by wrapper, so the launches of
-    # one replay, and the launches of the eager warm-up
+    # per kernel ("k3", "k1", "k2", "merge"): its nodes by wrapper, so the
+    # launches of one replay, and the launches of the eager warm-up
     kernel_nodes: Dict[str, Dict[str, int]]
     warmup: Dict[str, Dict[str, int]]
     pool: Tuple[int, int]
@@ -153,8 +155,9 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
                  ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     """The nodes of a captured (not yet instantiated) graph by type, from
     ``raw_cuda_graph()`` and libcuda's cuGraphGetNodes (the runtime's
-    cudaGraphGetNodes), and its K3, K1 and K2 kernel nodes by wrapper
-    (``{"k3": {...}, "k1": {...}, "k2": {...}}``), from each kernel node's function
+    cudaGraphGetNodes), and its K3, K1, K2 and merge kernel nodes by
+    wrapper (``{"k3": {...}, "k1": {...}, "k2": {...}, "merge": {...}}``),
+    from each kernel node's function
     (cuGraphKernelNodeGetParams) and its name (cuFuncGetName, or
     cuKernelGetName for a library kernel)."""
     cuda = ctypes.CDLL("libcuda.so.1")
@@ -332,8 +335,8 @@ def pool_bytes(pool: Tuple[int, int]) -> int:
 def stats() -> List[dict]:
     """One line per captured graph: the step, its key's config, replay,
     rotation and video axis, capture and instantiate seconds, nodes by
-    type, K3, K1 and K2 launches a replay and of the warm-up, and the pool's
-    bytes."""
+    type, the hand-written kernels' launches a replay and of the warm-up,
+    and the pool's bytes."""
     rows = []
     for key, g in _graphs.items():
         fn, (cfg, replay_, rot, _, sig, device) = key

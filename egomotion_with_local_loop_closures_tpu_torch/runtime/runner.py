@@ -28,6 +28,11 @@ from egomotion_with_local_loop_closures_tpu_torch.loop import closure, recovery
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     checkpoint, io as ellc_io, pipeline)
 
+# the frame source of both runners, under the JAX package's name for it
+# (runtime/runner.py there): the frames as float32 tensors on a device,
+# undistorted when cfg.do_undistortion is set
+undistort_source = pipeline.undistort_source
+
 
 @dataclass
 class RunResult:

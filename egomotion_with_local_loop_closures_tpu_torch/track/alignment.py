@@ -42,6 +42,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
+from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
 from egomotion_with_local_loop_closures_tpu_torch.geom import (camera, lie,
                                                               linear)
 from egomotion_with_local_loop_closures_tpu_torch.image import (interp,
@@ -68,6 +69,20 @@ class AlignDiagnostics(NamedTuple):
     final_energy: torch.Tensor    # sum of weighted squared residuals (finest)
     valid_fraction: torch.Tensor  # fraction of template pixels used (finest)
     oow_fraction: torch.Tensor    # always 0: the port samples exactly
+
+
+def make_keyframe_levels(image: torch.Tensor, depth0: torch.Tensor,
+                         var0: torch.Tensor, cfg: ELLCConfig
+                         ) -> Tuple[KeyframeLevel, ...]:
+    """The full keyframe pyramid: the Gaussian image pyramid and the
+    inverse-variance-fused depth/var pyramid (DepthPropagation.cpp:1637-1719).
+    The pipeline keeps these planes in its ``Keyframe`` and builds its
+    levels from them (``runtime/pipeline.py::_kf_levels``)."""
+    imgs = pyramid.build_pyramid(image, cfg.num_levels)
+    depths, vars_ = fusion.build_depth_var_pyramid(depth0, var0,
+                                                   cfg.num_levels)
+    return tuple(KeyframeLevel(i, d, v)
+                 for i, d, v in zip(imgs, depths, vars_))
 
 
 def make_current_levels(images: Sequence[torch.Tensor]

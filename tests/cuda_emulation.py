@@ -26,7 +26,12 @@ shared memory in its dynamic buffer (``extern __shared__``), which the
 shim gives each block of a cluster.  ``atomicAdd`` on an int is a
 ``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence,
 ``__ldcg`` a plain load, ``__popc`` the compiler's builtin, and
-``cudaFuncSetAttribute`` does nothing: one OS thread runs all fibers.  The sources'
+``cudaFuncSetAttribute`` does nothing: one OS thread runs all fibers.
+``atomicExch`` on an int is a ``std::atomic_ref`` exchange and
+``cudaMemsetAsync`` a ``memset``.  The blocks (or clusters) run in the
+grid's order, or, built with ``EMU_BLOCK_ORDER=1``, in reverse, or with
+``EMU_BLOCK_ORDER=2`` the odd ones first, then the even: a kernel whose
+result must not depend on the order in which blocks run is built each way.  The sources'
 headers (``csrc/*.cuh``) are copied beside them.  Built with
 ``-ffp-contract=off``, as nvcc's ``-fmad=false`` keeps every multiply and
 add apart.  The grid's z axis is not emulated
@@ -253,6 +258,7 @@ template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline int atomicExch(int* p, int v) { return std::atomic_ref<int>(*p).exchange(v); }
 namespace cooperative_groups {
 struct cluster_group {
   void sync() const { emu::wait(emu::run->cluster); }
@@ -278,6 +284,20 @@ enum { cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+#ifndef EMU_BLOCK_ORDER
+#define EMU_BLOCK_ORDER 0
+#endif
+// the k-th of n units (rows of blocks, or clusters) to run: in the grid's
+// order (0), reversed (1), or the odd units first, then the even (2)
+inline unsigned emu_order(unsigned k, unsigned n) {
+  if (EMU_BLOCK_ORDER == 1) return n - 1 - k;
+  if (EMU_BLOCK_ORDER == 2) return k < n / 2 ? 2 * k + 1 : 2 * (k - n / 2);
+  return k;
+}
 // a launch: grid.x blocks a row, cluster blocks together (1: one at a time)
 template <class F, class A>
 void emu_launch(F f, dim3 grid, dim3 block, size_t smem, const A& a,
@@ -285,9 +305,12 @@ void emu_launch(F f, dim3 grid, dim3 block, size_t smem, const A& a,
   emu::Run r;
   emu::run = &r;
   r.body = [&] { f(a); };
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; bx += cluster)
-      emu::blocks_together(bx, cluster, by, block.x, smem);
+  const unsigned per_row = grid.x / cluster, units = grid.y * per_row;
+  for (unsigned k = 0; k < units; ++k) {
+    const unsigned u = emu_order(k, units);
+    emu::blocks_together(u % per_row * cluster, cluster, u / per_row,
+                         block.x, smem);
+  }
   emu::run = nullptr;
 }
 """
@@ -328,7 +351,14 @@ def build_for_cpu(source: Path, out_dir: Path, launches: int,
     cpp = out_dir / f"{source.stem}.cpp"
     cpp.write_text(_for_cpu(src))
     lib = out_dir / f"lib{source.stem}_cpu.so"
+    # -fno-gnu-unique: the shim's inline variables (threadIdx, blockIdx,
+    # emu::run) would otherwise be STB_GNU_UNIQUE, which the dynamic linker
+    # binds process-wide by name, across libraries loaded RTLD_LOCAL: a
+    # later library of the same names (another kernel's build, K3's
+    # thread_local ones in tests/test_torch_reg_kernel_emulated.py) would
+    # use this one's variables
     subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-w", *(f"-D{d}" for d in defines), "-o",
-                    str(lib), str(cpp)], check=True)
+                    "-fno-gnu-unique", "-shared", "-w",
+                    *(f"-D{d}" for d in defines), "-o", str(lib), str(cpp)],
+                   check=True)
     return lib

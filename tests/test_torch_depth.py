@@ -2,9 +2,9 @@
 against the JAX package on the same numpy inputs.
 
 Tolerances: the glibc bootstrap is bit-exact; elementwise state maps
-agree to atol 1e-6; propagation's scatter sums agree to rtol 1e-5 (the
-two frameworks add the candidates of a target cell in different orders;
-on CUDA the order is atomic and changes from run to run), with the
+agree to atol 1e-6; propagation's scatter sums agree to rtol 1e-5 (XLA's
+scatter and the port's merge, which adds each cell's candidates in
+ascending source index, need not add them in the same order), with the
 discrete valid/blacklisted planes equal.
 """
 

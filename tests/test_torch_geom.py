@@ -194,3 +194,38 @@ def test_undistortion_matches_jax():
     got = camera.undistort_image(torch.as_tensor(img), *intr, cfg.distortion)
     close(want, got, atol=2e-4)
     assert not np.allclose(want, img)
+
+
+@pytest.mark.parametrize("undistort", [False, True])
+def test_runner_undistort_source_matches_jax(undistort):
+    """``runtime/runner.py::undistort_source``, the runners' frame
+    source: the frames as float32 tensors, untouched when the config
+    does not ask for undistortion; else each within
+    test_undistortion_matches_jax's 2e-4 grey levels of the JAX package's
+    undistort_image, and within 4e-3 of the JAX package's source, which
+    jit-compiles it (XLA's jit of the remap parts from the same function
+    run eagerly by 2.4e-3 on these frames)."""
+    from egomotion_with_local_loop_closures_tpu.runtime import (
+        runner as jrunner)
+    from egomotion_with_local_loop_closures_tpu_torch.runtime import runner
+    rng = np.random.default_rng(6)
+    frames = [rng.uniform(0.0, 255.0, size=(96, 128)).astype(np.float32)
+              for _ in range(3)]
+    kw = dict(rows=96, cols=128, fx=110.0, fy=110.0, cx=64.0, cy=48.0,
+              do_undistortion=undistort)
+    jcfg = jconfig.ELLCConfig(**kw)
+    want = list(jrunner.undistort_source(iter(frames), jcfg))
+    got = list(runner.undistort_source(iter(frames),
+                                       config.ELLCConfig(**kw), "cpu"))
+    assert len(got) == len(want) == 3
+    for f, a, b in zip(frames, want, got):
+        assert b.dtype == torch.float32 and b.device.type == "cpu"
+        if not undistort:
+            close(a, b, atol=0.0)
+            close(f, b, atol=0.0)
+            continue
+        close(a, b, atol=4e-3)
+        close(jcamera.undistort_image(jnp.asarray(f), jcfg.fx, jcfg.fy,
+                                      jcfg.cx, jcfg.cy, jcfg.distortion),
+              b, atol=2e-4)
+        assert not np.allclose(f, b.numpy())

@@ -27,8 +27,23 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("seed,outliers", [(0, 0), (1, 4), (2, 8)])
+def test_random_so3_graph_matches_jax(seed, outliers):
+    """The port of RandomSO3Graph.m draws what the JAX package's draws
+    from the same seed: the same edges, the rotations within a few
+    float32 units in the last place (two libraries' exp_so3)."""
+    want = jra.random_so3_graph(14, completeness=0.5, sigma=0.05,
+                                num_outliers=outliers, seed=seed)
+    got = ra.random_so3_graph(14, completeness=0.5, sigma=0.05,
+                              num_outliers=outliers, seed=seed)
+    np.testing.assert_array_equal(got[2], want[2])
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("seed,outliers", [(0, 0), (1, 4), (2, 8)])
 def test_average_so3_graph_matches_jax(seed, outliers):
-    R_gt, RR, I = jra.random_so3_graph(14, completeness=0.5, sigma=0.05,
+    R_gt, RR, I = ra.random_so3_graph(14, completeness=0.5, sigma=0.05,
                                        num_outliers=outliers, seed=seed)
     want = jra.average_so3_graph(RR, I)
     got = ra.average_so3_graph(RR, I, "cpu")
@@ -42,7 +57,7 @@ def test_average_so3_graph_matches_jax(seed, outliers):
 
 
 def test_l1_init_and_irls_refine_match_jax():
-    _, RR, I = jra.random_so3_graph(10, completeness=0.6, sigma=0.05,
+    _, RR, I = ra.random_so3_graph(10, completeness=0.6, sigma=0.05,
                                     num_outliers=3, seed=3)
     QQ = np.asarray(jlie.quat_from_matrix(jnp.asarray(RR, jnp.float32)))
     Q0 = ra.spanning_tree_init(QQ, I, 10)
@@ -68,7 +83,7 @@ def test_largest_component_and_incidence():
 
 
 def test_sanity_projection_errors_and_warning():
-    _, RR, I = jra.random_so3_graph(6, seed=4)
+    _, RR, I = ra.random_so3_graph(6, seed=4)
     bad = RR.copy()
     bad[2] = -bad[2]                                  # det = -1
     with pytest.raises(ValueError, match="improper"):

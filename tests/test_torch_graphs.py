@@ -33,8 +33,9 @@ On the CPU (one torch thread):
 On the card (``@pytest.mark.cuda``, skipped here; run there with
 ``python -m pytest tests/test_torch_graphs.py -m cuda --noconftest``):
 every replayed track_refine step equals its eager body bit for bit (NaN
-equal to NaN), the keyframe step equals it up to ``propagate``'s
-``index_add_`` atomics, and K3's and K1's launch counts of a replay equal
+equal to NaN), the keyframe step too (``propagate`` merges in a fixed
+order, one launch of each merge kernel), and K3's and K1's launch counts
+of a replay equal
 the eager step's (K1: one launch of each of its kernels per GN iteration,
 the sum of the level iteration counts).
 """
@@ -52,7 +53,7 @@ from egomotion_with_local_loop_closures_tpu_torch.config import (
     PARITY_OVERRIDES, TEST_CONFIG)
 from egomotion_with_local_loop_closures_tpu_torch.geom import linear
 from egomotion_with_local_loop_closures_tpu_torch.ops import (
-    gn_kernel, reg_kernel, stereo_kernel)
+    gn_kernel, propagate_kernel, reg_kernel, stereo_kernel)
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     graphs, io as ellc_io, pipeline, runner)
@@ -331,11 +332,12 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
         assert (reg_kernel.launches, gn_kernel.launches,
                 stereo_kernel.launches) == counts
         _assert_bits((graphed, out_g), (eager, out_e))
+    one_each = {"propagate_link": 1, "propagate_merge": 1}
+    propagate_kernel.reset_launches()
     kf_e = pipeline._keyframe_step(eager, image, cfg, replay, rot)
+    assert propagate_kernel.launches == one_each
+    propagate_kernel.reset_launches()
     kf_g = pipeline.keyframe_step(graphed, image, cfg, replay, rot)
-    for a, b in zip(_leaves(kf_g), _leaves(kf_e)):
-        assert a.shape == b.shape and a.dtype == b.dtype
-    np.testing.assert_allclose(kf_g[1].pose_wrt_world.cpu().numpy(),
-                               kf_e[1].pose_wrt_world.cpu().numpy(),
-                               atol=1e-4, rtol=0)
+    assert propagate_kernel.launches == one_each
+    _assert_bits(kf_g, kf_e)
     graphs.release()

@@ -252,3 +252,14 @@ def test_window_evicts_oldest_first(port_run):
                          s.world_pose, s.rescale, s.seeds)
         assert [e.frame_id for e in pc.entries] == [fid]
     assert pc.edges == []
+
+
+def test_rms_rotation_error_matches_jax():
+    """The reference's rms_error of two world twists, float32 and
+    float64 poses."""
+    rng = np.random.default_rng(8)
+    for dtype in (np.float32, np.float64):
+        a, b = rng.normal(size=(2, 6)).astype(dtype)
+        assert closure.rms_rotation_error(a, b) == \
+            jclosure.rms_rotation_error(a, b)
+    assert closure.rms_rotation_error(a, a) == 0.0

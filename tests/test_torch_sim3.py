@@ -166,3 +166,12 @@ def test_trajectory_refinement_matches_jax():
     assert got.shape == poses.shape == want.shape
     np.testing.assert_allclose(got, want, atol=SOLVER_TOL, rtol=0)
     assert np.abs(got - poses).max() > 10 * SOLVER_TOL
+
+
+@pytest.mark.parametrize("log_scale", [0.0, -0.37])
+def test_se3_to_sim3_matches_jax(log_scale):
+    xi = np.random.default_rng(4).normal(size=6).astype(np.float32)
+    want = np.asarray(jsim3.se3_to_sim3(jnp.asarray(xi), log_scale))
+    got = sim3.se3_to_sim3(torch.as_tensor(xi), log_scale)
+    assert got.dtype == torch.float32 and got.shape == (7,)
+    np.testing.assert_array_equal(got.numpy(), want)

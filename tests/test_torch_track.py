@@ -291,3 +291,29 @@ def test_align_const_weight_batch_matches_three_jax_calls(pair, candidates):
     np.testing.assert_allclose(want, got.numpy(), atol=1e-4)
     # every candidate lands on its own keyframe's true relative pose
     np.testing.assert_allclose(got.numpy(), rels, atol=2e-3)
+
+
+def test_make_keyframe_levels_matches_jax():
+    """The image pyramid and the fused depth/variance pyramid of a seeded
+    keyframe with holes, at test_torch_image.py's and
+    test_torch_depth.py's tolerances."""
+    rng = np.random.default_rng(3)
+    img = np.round(255 * rng.uniform(size=JCFG.shape)).astype(np.float32)
+    hole = rng.uniform(size=JCFG.shape) < 0.3
+    depth = np.where(hole, 0.0, rng.uniform(0.5, 3.0, size=JCFG.shape)
+                     ).astype(np.float32)
+    var = np.where(hole, -1.0, rng.uniform(0.001, 0.1, size=JCFG.shape)
+                   ).astype(np.float32)
+    want = jalign.make_keyframe_levels(jnp.asarray(img), jnp.asarray(depth),
+                                       jnp.asarray(var), JCFG)
+    got = alignment.make_keyframe_levels(
+        torch.as_tensor(img), torch.as_tensor(depth), torch.as_tensor(var),
+        CFG)
+    assert len(got) == len(want) == CFG.num_levels
+    for lj, lt in zip(want, got):
+        assert isinstance(lt, alignment.KeyframeLevel)
+        np.testing.assert_allclose(np.asarray(lj.image), lt.image.numpy(),
+                                   atol=1e-4)
+        for a, b in ((lj.depth, lt.depth), (lj.var, lt.var)):
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=2e-6,
+                                       atol=1e-7)

@@ -7,7 +7,8 @@ four ``pipeline.process_interval`` calls (7, 8, 8 and 8 frames), on video
 64v..64v+31 of ``reference_build/run_gn`` at 480x270 under the parity
 config, written by ``tools/make_port_golden.py --batched``) several
 times: on the CPU once per thread count in ``--threads``, or on a CUDA
-card ``--runs`` times (``index_add_`` in ``propagate`` sums in another
+card ``--runs`` times (the same bits each run since propagate's merge
+sums in a fixed order; before, its ``index_add_`` summed in another
 order each run).  ``--perturb EPS --draws N`` makes N more runs of each
 setting on frames with seeded uniform noise in [-EPS, EPS] grey levels
 added, and ``--package jax`` runs the JAX package's own single-video path

@@ -6,8 +6,9 @@ bootstrap of ``reference_build/run_lc`` (the run that
 ``tests/data/port_golden_run_lc.json`` holds, written by
 ``tools/make_port_golden.py --lc``) several times: on the CPU once per
 thread count in ``--threads`` (each count sums in its own order), or on a
-CUDA card ``--runs`` times (atomic adds sum in a different order each
-run).  For each run it prints one JSON line with the largest edge
+CUDA card ``--runs`` times (the same bits each run since propagate's
+merge and the Sim(3) sums run in a fixed order; before, float atomic
+adds summed in a different order each run).  For each run it prints one JSON line with the largest edge
 rotation, corrected-pose and KL differences from the golden file, the
 raw (pre-averaging) world-pose difference at every keyframe, the first
 frames where that difference passes 1e-4 and 1e-3, and each edge's

@@ -7,7 +7,8 @@ Runs ``runner.run_sequence`` of the PyTorch port with
 ``reference_build/run_gn`` with frames 40 and 41 flat, written by
 ``tools/make_port_golden.py --recovery``) several times: on the CPU once
 per thread count in ``--threads``, or on a CUDA card ``--runs`` times
-(``index_add_`` in ``propagate`` sums in another order each run).  For
+(the same bits each run since propagate's merge sums in a fixed
+order; before, its ``index_add_`` summed in another order each run).  For
 each run it prints one JSON line: whether the recoveries, dropped frames
 and frame ids equal the golden file's, each recovery's rotation,
 translation and seeds% difference, and the world-pose difference at
