@@ -9,9 +9,11 @@ Phases, each announced on its own line:
    limit from nvidia-smi;
 2. build: compiles the K3 kernel (csrc/reg_kernel.cu), the two K1
    kernels (csrc/gn_kernel.cu: gn_level_cluster and gn_step), the K2
-   kernel (csrc/stereo_kernel.cu) and propagate's two merge kernels
-   (csrc/propagate_kernel.cu: propagate_link and propagate_merge) from
-   this checkout, one nvcc each, started together, and prints each
+   kernel (csrc/stereo_kernel.cu), propagate's two merge kernels
+   (csrc/propagate_kernel.cu: propagate_link and propagate_merge) and
+   K4's three (csrc/se3_kernel.cu, csrc/pyramid_kernel.cu,
+   csrc/depth_refresh_kernel.cu) from this checkout, one nvcc each,
+   started together, and prints each
    kernel's registers, stack and shared memory and its static SASS
    instruction count (cuobjdump);
 3. K3 against its plain PyTorch version on the card, bit for bit (NaN
@@ -85,12 +87,24 @@ Phases, each announced on its own line:
    port ran it before them (float index_add_, atomic order) from CUDA-graph
    replays, in turns, and of one eager call of the twin (it reads the
    largest fan-in back to the host), beside the kernels' bound by bytes;
+3e. K4 against its plain twins on the card at one video (phase 3's
+   pipeline state, pose and keyframe world pose, and frame 9), eight
+   videos and a batch of 20 (rolled copies, poses moved by 2e-4 b): the
+   pyramid and gradients (pyramid.build_levels, with and without the
+   max-gradient map) and the depth-pyramid refresh
+   (fusion.refresh_depth_pyramid) bit-equal to their twins in every
+   output, the SE(3) compose and relative held by se3_kernel.agreement
+   (each pose within 1e-6 of the twin, or no farther from float64 than
+   the twin plus 1e-6; the bit-equal poses counted), a second call
+   bit-equal; then each one's device time per call and its twin's from
+   CUDA-graph replays, in turns, beside its bound;
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's, K1's
    and K2's launch counts must equal what the frame schedule implies (K1:
    a tracked frame's align one gn_level_cluster launch at each of levels
    2-3 and a gn_step launch an iteration at levels 0-1, 2 + 11; K2: one
-   a track_refine step), every pose must be
+   a track_refine step; K4: a step's compose, four pyramid levels and one
+   refresh, two in a keyframe step, and the init's), every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
    (the default: outputs read every four intervals) in turns 1/4/4/1:
@@ -209,16 +223,18 @@ Phases, each announced on its own line:
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3, K1, K2 and merge kernel nodes
+captured graph, and a replay counts the K3, K1, K2, merge and K4 kernel nodes
 of its graph (checked at capture against the wrapper calls the capture
 made);
 the eager warm-up before each capture counts apart, under
 ``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
-and 10) sets K3's, K1's, K2's and the merge kernels' launch counts to 0
+and 10) sets the launch counts of K3, K1, K2, the merge and K4 to 0
 just before it and reads them just after, and holds them to a hand count
-of its schedule; phase 14 holds each replayed step to the eager step's
-launches, one of K2 a track_refine step, one of each merge kernel a
-keyframe step.  The
+of its schedule (K4 on the LC paths: the launches of the graph
+replays, the eager calls printed); phase 14 holds each replayed step to
+the eager step's launches, one of K2 a track_refine step, one of each
+merge kernel a keyframe step, K4's per step, and a track_refine graph
+without the loop window under 150 kernel nodes.  The
 last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -417,6 +433,68 @@ K2_BYTES_PIXEL, K2_BYTES_VIDEO = 25 + 20 + 25, 24 + 8
 def k2_expected(path):
     """K2's launches on a driven path, by the hand count above."""
     return {"stereo_observe": K2_STEPS[path]}
+
+
+# K4 (ops/se3_kernel.py, ops/pyramid_kernel.py, ops/depth_refresh_kernel.py):
+# the SE(3) compose, one se3_compose launch a lie.compose or lie.relative
+# call; the pyramid and gradients, one pyramid_level launch a level of
+# pyramid.build_levels (four at 4 levels), or one for a gradients or
+# max_abs_gradient call; the keyframe's depth-pyramid refresh, one
+# depth_refresh launch a call.  From the step bodies (runtime/pipeline.py):
+# a track_refine step composes its world pose once, builds the frame's four
+# levels with their gradients and refreshes the keyframe's depth pyramid
+# once; a keyframe step the same (its four levels, with the map, become the
+# new keyframe's) and a second refresh (the old keyframe's and the new
+# one's); a replay step with an initial rotation one relative more;
+# init_pipeline, or make_keyframe alone (a recovered frame), four levels
+# and one refresh; a batched recovery trial the constant-weight align's 32
+# iterations (12 + 9 + 7 + 4) a compose each, the frame's four levels and
+# the templates' gradients at each level (four), and the hit one compose
+# for its world pose.  Per path: (track_refine steps, keyframe steps,
+# replay steps, inits, trials, hits), the steps as counted for K3 above.
+# The LC paths' eager calls (the init, each batch's and push's composes,
+# the loop window's gates and rematches, each replay's init_from_depth)
+# hang on the window's gates: they are held to the launches of the graph
+# replays alone, and their eager launches are printed.
+K4_NAMES = ("se3_compose", "pyramid_level", "depth_refresh")
+K4_TRACK, K4_KEYFRAME, K4_REPLAY = (1, 4, 1), (1, 4, 2), (1, 0, 0)
+K4_INIT, K4_TRIAL = (0, 4, 1), (32, 8, 0)
+K4_PATHS = {"gn_run_sequence": (112, 16, 0, 1, 0, 0),
+            "lc_bootstrap": (69, 10, 0, 0, 0, 0),
+            "lc_mode": (250, 36, 79 + 2 * 32, 0, 0, 0),
+            "recovery": (39, 6, 0, 2, 2, 1),
+            "batched_videos": (27, 4, 0, 1, 0, 0),
+            "synthetic": (56, 8, 0, 1, 0, 0)}
+K4_GRAPHED_ONLY = ("lc_bootstrap", "lc_mode")
+# phase 14: a track_refine graph's kernel nodes with K4, the loop window
+# off (517 before it)
+TRACK_GRAPH_NODES_MAX = 150
+# Phase 3e: the compose's float32 operations a pose, counted by hand from
+# csrc/se3_kernel.cu (two exps ~150 each, the 4x4 product 84, the log
+# ~170); the bytes each kernel must move, each read once or written once:
+# a pose pair in and a pose out (72 B); the pyramid's level-0 image in
+# (4 B a pixel), every level's two gradient planes out (8 B a pixel of
+# every level) and levels 1-3 out (4 B a pixel), its operations a
+# gradient pixel 6 and a blurred pixel 54 (five five-tap sums and the
+# horizontal pass); the refresh's valid flag, smoothed inverse depth and
+# variance in and the new flag, depth and variance out (18 B a pixel), the
+# fused levels' depth and variance out (8 B a cell), its operations a
+# level-0 pixel 6 and a fused cell 24
+SE3_OPS, SE3_BYTES = 570, 2 * 24 + 24
+PYR_BYTES_IN, PYR_BYTES_GRAD, PYR_BYTES_UP = 4, 8, 4
+PYR_OPS_PX, PYR_OPS_UP = 6, 54
+REF_BYTES_PX, REF_BYTES_CELL, REF_OPS_PX, REF_OPS_CELL = 18, 8, 6, 24
+
+
+def k4_expected(path):
+    """K4's launches on a driven path (graph replays alone on the LC
+    paths), by the hand count above."""
+    track, kf, replay, inits, trials, hits = K4_PATHS[path]
+    counts = [track * a + kf * b + replay * c + inits * d + trials * e
+              for a, b, c, d, e in zip(K4_TRACK, K4_KEYFRAME, K4_REPLAY,
+                                       K4_INIT, K4_TRIAL)]
+    counts[0] += hits
+    return dict(zip(K4_NAMES, counts))
 
 
 # seeds% within 2 points, not 1: frame 17 is the first stereo pass against
@@ -1242,6 +1320,154 @@ def merge_phase(cases, cfg, gpu):
     return worst, timed, fans
 
 
+def k4_phase(st, img, cfg, gpu):
+    """Phase 3e: K4's three kernels against their plain twins at one video
+    (phase 3's pipeline state, its keyframe and pose, and frame 9), eight
+    videos and a batch of 20 (copy b rolled by (dy b, dx b) pixels, its
+    pose moved by 2e-4 b): the pyramid and the refresh bit-equal in every
+    output (NaN equal to NaN), the compose held by
+    ``se3_kernel.agreement`` (its bit-equal poses counted), a second call
+    bit-equal to the first; then each one's device time per call and its
+    twin's from CUDA-graph replays, in turns twin / kernel / kernel /
+    twin, beside its bound.  Returns, per kernel, its largest |float
+    difference| from the twin and per case (kernel ms, twin ms, bound ms,
+    bound by)."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS, DepthMapState)
+    from egomotion_with_local_loop_closures_tpu_torch.geom import lie
+    from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
+    from egomotion_with_local_loop_closures_tpu_torch.ops import se3_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import bound_ms, device_ms
+    L = cfg.num_levels
+    worst = dict.fromkeys(K4_NAMES, 0.0)
+    timed = {name: {} for name in K4_NAMES}
+
+    def turns(kern, plain, reps=200):
+        ts = [device_ms(f, r)[0] for f, r in
+              ((plain, 20), (kern, reps), (kern, reps), (plain, 20))]
+        return (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2, ts
+
+    def stack(t, B, dy, dx):
+        return torch.stack([torch.roll(t, (dy * b, dx * b), (-2, -1))
+                            for b in range(B)])
+
+    def differ(a, b):
+        return int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+
+    def ltr_norm(x, dim=-1, keepdim=False):
+        """|x| over the last axis, its squares summed left to right."""
+        acc = x[..., 0] * x[..., 0]
+        for k in range(1, x.shape[-1]):
+            acc = acc + x[..., k] * x[..., k]
+        acc = torch.sqrt(acc)
+        return acc[..., None] if keepdim else acc
+
+    for label, spec in (("V=1", None), ("V=8", (8, 1, 2)),
+                        ("B=20", (20, 7, 23))):
+        if spec is None:
+            image, depth = img, st.depth
+            pose, world = st.prev_wrt_kf, st.kf.world_pose
+        else:
+            B, dy, dx = spec
+            image = stack(img, B, dy, dx)
+            depth = DepthMapState(**{n: stack(getattr(st.depth, n), B, dy, dx)
+                                     for n in FIELDS})
+            step = 2e-4 * torch.arange(B, device=img.device)[:, None]
+            pose, world = st.prev_wrt_kf + step, st.kf.world_pose - step
+        n_img = image[..., 0, 0].numel()
+        # the SE(3) compose and relative: the pipeline's world pose
+        for name, fn, plain, inv in (
+                ("compose", lie.compose, lie.plain_compose, False),
+                ("relative", lie.relative, lie.plain_relative, True)):
+            got, again = fn(pose, world), fn(pose, world)
+            want = plain(pose, world)
+            diff, apart = se3_kernel.agreement(got, pose, world, inv)
+            exact = int((got == want).all(-1).sum())
+            check(apart == 0 and torch.equal(got, again),
+                  f"{name} {label}: within the rule of COMPOSE_TOL "
+                  f"{se3_kernel.COMPOSE_TOL} of its twin ({apart} poses "
+                  f"apart, {diff:.3g} at most), a second call bit-equal")
+            worst["se3_compose"] = max(worst["se3_compose"], diff)
+            # which function parts them: the twin again with its
+            # quaternion norms summed left to right, as the kernel sums
+            norm = torch.linalg.vector_norm
+            torch.linalg.vector_norm = ltr_norm
+            try:
+                ltr = int((got == plain(pose, world)).all(-1).sum())
+            finally:
+                torch.linalg.vector_norm = norm
+            print(f"{name} {label}: {n_img} poses, {exact} bit-equal to the "
+                  f"twin ({ltr} with the twin's vector_norm summed left to "
+                  f"right), max |diff| {diff:.3g}; a second call bit-equal")
+        k_ms, p_ms, ts = turns(lambda: lie.compose(pose, world),
+                               lambda: lie.plain_compose(pose, world))
+        bound, by = bound_ms(SE3_BYTES * n_img, SE3_OPS * n_img)
+        timed["se3_compose"][label] = (k_ms, p_ms, bound, by)
+        print(f"compose {label}: device time per call {k_ms:.5f} ms, the "
+              f"twin {p_ms:.5f} ms (turns {' '.join(f'{t:.5f}' for t in ts)}"
+              f"); bound {bound:.3g} ms by {by}, {100 * bound / k_ms:.3g} % "
+              f"of it reached; on {gpu}")
+        # the frame's pyramid and gradients (the track_refine step's call,
+        # no map), and with the keyframe step's map
+        for mg in (False, True):
+            got = pyramid.build_levels(image, L, mg)
+            again = pyramid.build_levels(image, L, mg)
+            want = pyramid.plain_build_levels(image, L, mg)
+            for f in pyramid.Levels._fields:
+                for a, b, c in zip(*(x if isinstance(x, tuple) else (x,)
+                                     for x in (getattr(got, f),
+                                               getattr(want, f),
+                                               getattr(again, f)))):
+                    check(a is None and b is None
+                          or differ(a, b) == 0 and differ(a, c) == 0,
+                          f"pyramid {label} (map {mg}): {f} bit-equal to "
+                          f"the twin and to a second call")
+        print(f"pyramid {label}: {L} levels of {tuple(image.shape)}, every "
+              f"level, gradient and the map bit-equal to the twin; a second "
+              f"call bit-equal")
+        k_ms, p_ms, ts = turns(lambda: pyramid.build_levels(image, L),
+                               lambda: pyramid.plain_build_levels(image, L))
+        sizes = [im[..., 0, 0].numel() * im.shape[-2] * im.shape[-1]
+                 for im in got.images]
+        bound, by = bound_ms(
+            PYR_BYTES_IN * sizes[0] + PYR_BYTES_GRAD * sum(sizes)
+            + PYR_BYTES_UP * sum(sizes[1:]),
+            PYR_OPS_PX * sum(sizes) + PYR_OPS_UP * sum(sizes[1:]))
+        timed["pyramid_level"][label] = (k_ms, p_ms, bound, by)
+        print(f"pyramid {label}: device time per call ({L} launches) "
+              f"{k_ms:.5f} ms, the twin {p_ms:.5f} ms (turns "
+              f"{' '.join(f'{t:.5f}' for t in ts)}); bound {bound:.6f} ms by "
+              f"{by}, {100 * bound / k_ms:.1f} % of it reached; on {gpu}")
+        # the keyframe's depth-pyramid refresh
+        got = fusion.refresh_depth_pyramid(depth, cfg)
+        again = fusion.refresh_depth_pyramid(depth, cfg)
+        want = fusion.plain_refresh_depth_pyramid(depth, cfg)
+        for x, y, z in ((got[0].valid, want[0].valid, again[0].valid),
+                        *zip(got[1] + got[2], want[1] + want[2],
+                             again[1] + again[2])):
+            check(differ(x, y) == 0 and differ(x, z) == 0,
+                  f"refresh {label}: every plane bit-equal to the twin and "
+                  f"to a second call")
+        k_ms, p_ms, ts = turns(
+            lambda: fusion.refresh_depth_pyramid(depth, cfg),
+            lambda: fusion.plain_refresh_depth_pyramid(depth, cfg))
+        cells = [d.numel() for d in got[1]]
+        bound, by = bound_ms(
+            REF_BYTES_PX * cells[0] + REF_BYTES_CELL * sum(cells[1:]),
+            REF_OPS_PX * cells[0] + REF_OPS_CELL * sum(cells[1:]))
+        timed["depth_refresh"][label] = (k_ms, p_ms, bound, by)
+        print(f"refresh {label}: {tuple(depth.valid.shape)}, the valid "
+              f"plane and {L} levels bit-equal to the twin, a second call "
+              f"bit-equal; device time per call {k_ms:.5f} ms, the twin "
+              f"{p_ms:.5f} ms (turns {' '.join(f'{t:.5f}' for t in ts)}); "
+              f"bound {bound:.6f} ms by {by}, {100 * bound / k_ms:.1f} % of "
+              f"it reached; on {gpu}")
+    return worst, timed
+
+
 def index_add_merge(pk, tgt, cand, idepth, var, validity, shape, cfg):
     """The merge as the port ran it before the kernels, with float
     ``index_add_``: on the card its sums come in atomic order.  Phase 3d
@@ -1323,7 +1549,8 @@ def main() -> int:
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.ops import (
-        gn_kernel, propagate_kernel, reg_kernel, stereo_kernel)
+        depth_refresh_kernel, gn_kernel, propagate_kernel, pyramid_kernel,
+        reg_kernel, se3_kernel, stereo_kernel)
     from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
     from egomotion_with_local_loop_closures_tpu_torch.runtime import (
         ellc_lc, graphs, io as ellc_io, pipeline, runner)
@@ -1338,6 +1565,57 @@ def main() -> int:
     check(os.path.dirname(os.path.abspath(port.__file__))
           == os.path.join(ROOT, PKG), "the port imported from this checkout")
     check("jax" not in sys.modules, "jax stays unimported")
+
+    # K4's launches on a path, and apart those that graph replays add
+    # (runtime/graphs.py adds each replay's nodes through add_launches)
+    k4_mods = dict(zip(K4_NAMES, (se3_kernel, pyramid_kernel,
+                                  depth_refresh_kernel)))
+    k4_graphed = dict.fromkeys(K4_NAMES, 0)
+
+    def graph_counted(add):
+        def add_launches(counts):
+            for k, n in counts.items():
+                k4_graphed[k] += n
+            add(counts)
+        return add_launches
+    for mod in k4_mods.values():
+        mod.add_launches = graph_counted(mod.add_launches)
+
+    def k4_reset():
+        for mod in k4_mods.values():
+            mod.reset_launches()
+        for k in k4_graphed:
+            k4_graphed[k] = 0
+    launches_k4, graphed_k4, warmups_k4 = {}, {}, {}
+
+    def k4_check(path, total=None, warm=None):
+        """Reads K4's launches of ``path`` (or takes a child process's
+        ``total`` and ``warm``) and holds them to the hand count: all of
+        them, or on the LC paths those of the graph replays."""
+        if total is None:
+            total = {k: m.launches[k] for k, m in k4_mods.items()}
+            warm = {k: m.warmup_launches[k] for k, m in k4_mods.items()}
+            graphed_k4[path] = dict(k4_graphed)
+        launches_k4[path], warmups_k4[path] = total, warm
+        want = k4_expected(path)
+        if path in K4_GRAPHED_ONLY:
+            gr = graphed_k4[path]
+            eager = {k: total[k] - gr[k] for k in K4_NAMES}
+            print(f"K4 launches {total}: graph replays {gr}, expected "
+                  f"{want}; eager calls {eager} (the init, each batch's and "
+                  f"push's composes, the window's gates and rematches, the "
+                  f"replays' init_from_depth); the warm-ups {warm} more")
+            check(gr == want and eager["se3_compose"] > 0
+                  and eager["pyramid_level"] >= K4_INIT[1]
+                  and eager["depth_refresh"] >= K4_INIT[2],
+                  f"K4's graph launches on {path} match the schedule, and "
+                  f"the eager calls launch each kernel")
+        else:
+            print(f"K4 launches {total} (graph replays "
+                  f"{graphed_k4.get(path, 'not counted apart')}), expected "
+                  f"{want}; the warm-ups {warm} more")
+            check(total == want, f"K4's launch counts on {path} match the "
+                  f"schedule")
 
     # float32 everywhere: no TF32 in matrix products or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1359,27 +1637,25 @@ def main() -> int:
         print(f"triton does not import: {e}")
     print(f"gpu (name, power limit): {gpu}")
 
-    phase("2 build K3, K1, K2 and the merge")
+    phase("2 build K3, K1, K2, the merge and K4's compose, pyramid and "
+          "refresh")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(4) as pool:
-        lib, lib_k1, lib_k2, lib_mg = pool.map(lambda m: m.build(), (
-            reg_kernel, gn_kernel, stereo_kernel, propagate_kernel))
-    reg_kernel._library()
-    gn_kernel._library()
-    stereo_kernel._library()
-    propagate_kernel._library()
-    print(f"built {os.path.relpath(lib, ROOT)}, "
-          f"{os.path.relpath(lib_k1, ROOT)}, "
-          f"{os.path.relpath(lib_k2, ROOT)} and "
-          f"{os.path.relpath(lib_mg, ROOT)} in "
+    built_mods = (reg_kernel, gn_kernel, stereo_kernel, propagate_kernel,
+                  se3_kernel, pyramid_kernel, depth_refresh_kernel)
+    with ThreadPoolExecutor(len(built_mods)) as pool:
+        libs = list(pool.map(lambda m: m.build(), built_mods))
+    lib, lib_k1, lib_k2, lib_mg = libs[:4]
+    for mod in built_mods:
+        mod._library()
+    print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits"]).splitlines()[0])
     cuobjdump = os.path.join(os.path.dirname(reg_kernel._find_nvcc()),
                              "cuobjdump")
-    for lib_k in (lib_k1, lib_k2, lib_mg):
+    for lib_k in (lib_k1, lib_k2, lib_mg, *libs[4:]):
         k_sass = sass_counts(lib_k, cuobjdump)
         for fn, res in kernel_resources(lib_k, cuobjdump).items():
             print(f"{fn}: {res}; {sum(k_sass[fn])} SASS instructions")
@@ -1659,6 +1935,11 @@ def main() -> int:
     check(fans_mg["zoom-out"] > chunk, f"the zoom-out's largest fan-in "
           f"{fans_mg['zoom-out']} passes the kernel's {chunk} a walk")
 
+    phase("3e K4 against its plain twins: the SE(3) compose, the pyramid "
+          "and gradients, the depth-pyramid refresh, at V = 1, V = 8 and "
+          "B = 20, 270x480")
+    worst_k4, timed_k4 = k4_phase(st, img9, cfg, gpu)
+
     phase(f"4 main path: run_sequence over {MAIN_FRAMES} frames on cuda")
     n_track, n_kf = schedule(MAIN_FRAMES, cfg.keyframe_interval)
     expect = {"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
@@ -1672,6 +1953,7 @@ def main() -> int:
         gn_kernel.reset_launches()
         stereo_kernel.reset_launches()
         propagate_kernel.reset_launches()
+        k4_reset()
         t0 = time.perf_counter()
         res = runner.run_sequence(iter(frames[:MAIN_FRAMES]), cfg, dev,
                                   out_dir=out)
@@ -1686,6 +1968,7 @@ def main() -> int:
         warmups_k2 = {"gn_run_sequence": dict(stereo_kernel.warmup_launches)}
         warmups_mg = {"gn_run_sequence": dict(
             propagate_kernel.warmup_launches)}
+        k4_check("gn_run_sequence")
         poses_file = ellc_io.read_pose_file(os.path.join(out,
                                                          "poses_orig.txt"))
         matches = ellc_io.read_pose_file(os.path.join(out, "matchframes.txt"))
@@ -1793,6 +2076,7 @@ def main() -> int:
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
     propagate_kernel.reset_launches()
+    k4_reset()
     t0 = time.perf_counter()
     res6 = ellc_lc.run_ellc_lc(iter(lc_frames[:n_lc]),
                                lc_cfg.replace(do_sim3_refine=True), dev,
@@ -1809,6 +2093,7 @@ def main() -> int:
     warmups_k2["lc_bootstrap"] = dict(stereo_kernel.warmup_launches)
     warmups_mg["lc_bootstrap"] = dict(
         propagate_kernel.warmup_launches)
+    k4_check("lc_bootstrap")
     print(f"K1 launches {launches_k1['lc_bootstrap']}, expected "
           f"{k1_expected('lc_bootstrap')}")
     check(launches_k1["lc_bootstrap"] == k1_expected("lc_bootstrap"),
@@ -1883,6 +2168,7 @@ def main() -> int:
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
     propagate_kernel.reset_launches()
+    k4_reset()
     t0 = time.perf_counter()
     res7 = ellc_lc.run_ellc_lc(iter(lc_frames[:LC_FRAMES]), lc_cfg, dev,
                                stats=stats7)
@@ -1897,6 +2183,7 @@ def main() -> int:
     warmups_k2["lc_mode"] = dict(stereo_kernel.warmup_launches)
     warmups_mg["lc_mode"] = dict(
         propagate_kernel.warmup_launches)
+    k4_check("lc_mode")
     print(f"K1 launches {launches_k1['lc_mode']}, expected "
           f"{k1_expected('lc_mode')} (143 tracked and 143 replayed frames)")
     check(launches_k1["lc_mode"] == k1_expected("lc_mode"),
@@ -1944,6 +2231,7 @@ def main() -> int:
     gn_kernel.reset_launches()
     stereo_kernel.reset_launches()
     propagate_kernel.reset_launches()
+    k4_reset()
     t0 = time.perf_counter()
     res8 = runner.run_sequence(iter(rec_frames), rec_cfg, dev)
     torch.cuda.synchronize()
@@ -1957,6 +2245,7 @@ def main() -> int:
     warmups_k2["recovery"] = dict(stereo_kernel.warmup_launches)
     warmups_mg["recovery"] = dict(
         propagate_kernel.warmup_launches)
+    k4_check("recovery")
     print(f"K1 launches {launches_k1['recovery']}, expected "
           f"{k1_expected('recovery')}")
     check(launches_k1["recovery"] == k1_expected("recovery"),
@@ -2046,6 +2335,7 @@ def main() -> int:
             gn_kernel.reset_launches()
             stereo_kernel.reset_launches()
             propagate_kernel.reset_launches()
+            k4_reset()
         states9, outs9, wall9, peak9 = batched_run(V)
         if V == BATCH_VIDEOS:
             launches9 = dict(reg_kernel.launches)
@@ -2057,6 +2347,7 @@ def main() -> int:
             warmups_k2["batched_videos"] = dict(stereo_kernel.warmup_launches)
             warmups_mg["batched_videos"] = dict(
                 propagate_kernel.warmup_launches)
+            k4_check("batched_videos")
         pred = predicted[V].peak_bytes
         pools = {r["pool"]: r["pool_bytes"] for r in graphs.stats()
                  if r["lead"] == (V,)}
@@ -2177,14 +2468,22 @@ def main() -> int:
         # the CLI in its own process; the wrapper resets K3's counts just
         # before cli.main and prints them just after
         code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-                f"from {PKG}.ops import gn_kernel, propagate_kernel, "
-                f"reg_kernel, stereo_kernel; "
+                f"from {PKG}.ops import depth_refresh_kernel, gn_kernel, "
+                f"propagate_kernel, pyramid_kernel, reg_kernel, se3_kernel, "
+                f"stereo_kernel; "
                 f"from {PKG}.runtime import cli; "
+                f"k4 = (se3_kernel, pyramid_kernel, depth_refresh_kernel); "
                 f"reg_kernel.reset_launches(); "
                 f"gn_kernel.reset_launches(); "
                 f"stereo_kernel.reset_launches(); "
                 f"propagate_kernel.reset_launches(); "
+                f"[m.reset_launches() for m in k4]; "
                 f"rc = cli.main(sys.argv[1:]); "
+                f"print('K4 launches ' + json.dumps("
+                f"{{k: v for m in k4 for k, v in m.launches.items()}})); "
+                f"print('K4 warm-up launches ' + json.dumps("
+                f"{{k: v for m in k4 for k, v in m.warmup_launches.items()}}"
+                f")); "
                 f"print('K3 launches ' + json.dumps(reg_kernel.launches)); "
                 f"print('K3 warm-up launches ' + "
                 f"json.dumps(reg_kernel.warmup_launches)); "
@@ -2225,6 +2524,10 @@ def main() -> int:
             r"merge launches (\{.*\})", proc.stdout).group(1))
         warmups_mg["synthetic"] = json.loads(re.search(
             r"merge warm-up launches (\{.*\})", proc.stdout).group(1))
+        k4_check("synthetic", json.loads(re.search(
+            r"K4 launches (\{.*\})", proc.stdout).group(1)), json.loads(
+            re.search(r"K4 warm-up launches (\{.*\})",
+                      proc.stdout).group(1)))
         gt10 = np.loadtxt(os.path.join(out, "poses_gt.txt"))
         orig10 = ellc_io.read_pose_file(os.path.join(out, "poses_orig.txt"))
     ids10 = orig10[:, 0].astype(int)
@@ -2458,11 +2761,19 @@ def main() -> int:
 
     def kernel_counts():
         return (dict(reg_kernel.launches), dict(gn_kernel.launches),
-                dict(stereo_kernel.launches), dict(propagate_kernel.launches))
+                dict(stereo_kernel.launches), dict(propagate_kernel.launches),
+                {k: m.launches[k] for k, m in k4_mods.items()})
 
     def reset_counts():
         for mod in (reg_kernel, gn_kernel, stereo_kernel, propagate_kernel):
             mod.reset_launches()
+        k4_reset()
+
+    def k4_step(per_step, rot):
+        """K4's launches a step: its hand count, one relative more with an
+        initial rotation."""
+        return dict(zip(K4_NAMES, (per_step[0] + (rot is not None),
+                                   *per_step[1:])))
 
     def graphed_vs_eager(label, start, imgs, c, replay=False, rots=None):
         """The interval ``imgs`` from ``start``, graphed and eager: every
@@ -2481,9 +2792,11 @@ def main() -> int:
             n_e = kernel_counts()
             torch.cuda.synchronize()
             check(n_g == n_e and n_e[2] == {"stereo_observe": 1}
-                  and sum(n_e[3].values()) == 0,
-                  f"{label}: K3, K1, K2 and merge launches of a replay {n_g} "
-                  f"equal the eager step's {n_e}, one K2 launch, no merge")
+                  and sum(n_e[3].values()) == 0
+                  and n_e[4] == k4_step(K4_TRACK, rot),
+                  f"{label}: K3, K1, K2, merge and K4 launches of a replay "
+                  f"{n_g} equal the eager step's {n_e}, one K2 launch, no "
+                  f"merge, K4's {k4_step(K4_TRACK, rot)}")
             d = leaf_diffs((g, og), (e, oe))
             check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
                   f"graphed equals eager bit for bit (max |diff| "
@@ -2499,9 +2812,11 @@ def main() -> int:
         torch.cuda.synchronize()
         check(all(n == counts[1] for n in counts)
               and counts[1][3] == {"propagate_link": 1,
-                                   "propagate_merge": 1},
+                                   "propagate_merge": 1}
+              and counts[1][4] == k4_step(K4_KEYFRAME, rot),
               f"{label}: the keyframe step's launches, graphed and eager, "
-              f"{counts}: equal, one of each merge kernel")
+              f"{counts}: equal, one of each merge kernel, K4's "
+              f"{k4_step(K4_KEYFRAME, rot)}")
         names = leaf_names(runs[0])
         for i, j, what in ((0, 1, "graph-eager"), (2, 0, "graph-graph"),
                            (3, 1, "eager-eager")):
@@ -2542,7 +2857,8 @@ def main() -> int:
               f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
               f"(warm-up {r['warmup_k1']}), K2 nodes {r['k2']} (warm-up "
               f"{r['warmup_k2']}), merge nodes {r['merge']} (warm-up "
-              f"{r['warmup_merge']}); capture "
+              f"{r['warmup_merge']}), K4 nodes {r['se3']} {r['pyramid']} "
+              f"{r['refresh']}; capture "
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
@@ -2551,6 +2867,16 @@ def main() -> int:
                              "propagate_merge": per_call},
               f"graph {r['step']}: {per_call} node of each merge kernel, "
               f"found by name")
+        k4_want = k4_step(K4_KEYFRAME if per_call else K4_TRACK,
+                          True if r["init_rotation"] else None)
+        check({**r["se3"], **r["pyramid"], **r["refresh"]} == k4_want,
+              f"graph {r['step']}: K4's nodes {k4_want}, found by name")
+        if r["step"] == "track_refine_step" and not \
+                pipeline._needs_window(r["cfg"]):
+            check(r["nodes"].get("kernel", 0) < TRACK_GRAPH_NODES_MAX,
+                  f"a track_refine graph holds {r['nodes'].get('kernel')} "
+                  f"kernel nodes, under {TRACK_GRAPH_NODES_MAX} (517 before "
+                  f"K4)")
     print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
           f"{sum(pools14.values()) / 2**20:.1f} MiB")
 
@@ -2722,7 +3048,38 @@ def main() -> int:
                              "bound_by": t[4]}
                      for label, t in timed_mg.items()
                      if label != "one state"}}]
-    print(json.dumps({"kernels": k3_rows + k1_rows + k2_rows + mg_rows}))
+    # K4: phase 3e's one video; 8 videos and 20 states under "batched"
+    k4_rows = [
+        {"name": name, "route": "cuda",
+         "source": os.path.join(PKG, "csrc", src),
+         "replaces": f"egomotion_with_local_loop_closures_tpu/{jax_at}",
+         "launches": launches_k4["gn_run_sequence"][k],
+         "launches_by_path": {p: v[k] for p, v in launches_k4.items()},
+         "graph_launches_by_path": {p: v[k] for p, v in graphed_k4.items()},
+         "warmup_launches_by_path": {p: v[k] for p, v in warmups_k4.items()},
+         "max_abs_err": worst_k4[k], "ms": timed_k4[k]["V=1"][0],
+         "plain_ms": timed_k4[k]["V=1"][1], "bound_ms": timed_k4[k]["V=1"][2],
+         "bound_by": timed_k4[k]["V=1"][3], "ms_of": of,
+         "library_ms": None, "library_none": why,
+         "batched": {c: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                         "bound_by": t[3]}
+                     for c, t in timed_k4[k].items() if c != "V=1"}}
+        for k, name, src, jax_at, of, why in (
+            ("se3_compose", "se3_kernel.compose", "se3_kernel.cu",
+             "geom/lie.py:150", "one compose of the pipeline's pose",
+             "no PyTorch call composes SE(3) twists"),
+            ("pyramid_level", "pyramid_kernel.build_levels",
+             "pyramid_kernel.cu", "image/pyramid.py:52",
+             f"one build_levels call, {cfg.num_levels} launches",
+             "no single PyTorch call blurs with edge replication, "
+             "decimates and takes one-sided border gradients"),
+            ("depth_refresh", "depth_refresh_kernel.refresh",
+             "depth_refresh_kernel.cu", "depth/state.py:98",
+             "one refresh of phase 3's state",
+             "no single PyTorch call masks, inverts and fuses the levels "
+             "by inverse variance"))]
+    print(json.dumps({"kernels": k3_rows + k1_rows + k2_rows + mg_rows
+                      + k4_rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's hand-written kernels (K1,
-// csrc/gn_kernel.cu, and K2, csrc/stereo_kernel.cu): the Lie-group algebra
+// csrc/gn_kernel.cu, K2, csrc/stereo_kernel.cu, and the SE(3) compose,
+// csrc/se3_kernel.cu): the Lie-group algebra
 // of geom/lie.py formula by formula (exp_se3, log_se3 and their parts),
 // NaN-propagating clamps, and the port's bilinear gather semantics
 // (image/interp.py: to_index, corner, blend).  Each source that includes
@@ -8,7 +9,7 @@
 // were when they sat in gn_kernel.cu.
 //
 // ops/__init__.py hashes every header of csrc/ into each library's name,
-// so an edit here rebuilds both libraries.
+// so an edit here rebuilds every library.
 
 #pragma once
 

@@ -4,6 +4,11 @@ Port of ``egomotion_with_local_loop_closures_tpu/depth/fusion.py``
 (``depthMap::buildInvVarDepth``, ``src/DepthPropagation.cpp:1637-1719``):
 each coarse cell fuses its 2x2 children by inverse variance in
 inverse-depth space; with no valid child it gets depth 0 / var -1.
+
+:func:`refresh_depth_pyramid`, the keyframe's refresh of every frame step
+(``state.to_depth_image`` then :func:`build_depth_var_pyramid`), launches
+the hand-written CUDA kernel of ``ops/depth_refresh_kernel.py`` for a CUDA
+state and runs that plain composition for a CPU state.
 """
 
 from __future__ import annotations
@@ -11,6 +16,19 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
+from egomotion_with_local_loop_closures_tpu_torch.depth import state as dstate
+from egomotion_with_local_loop_closures_tpu_torch.ops import (
+    depth_refresh_kernel)
+
+
+def _sum4(t: torch.Tensor) -> torch.Tensor:
+    """The 2x2 children of (..., H2, 2, W2, 2) summed in one fixed order,
+    (c00 + c01) + (c10 + c11): the CPU's order for ``sum(dim=(-3, -1))``
+    and the kernel's."""
+    return ((t[..., 0, :, 0] + t[..., 0, :, 1])
+            + (t[..., 1, :, 0] + t[..., 1, :, 1]))
 
 
 def fuse_level(depth: torch.Tensor, var: torch.Tensor
@@ -25,9 +43,9 @@ def fuse_level(depth: torch.Tensor, var: torch.Tensor
     ivar = torch.where(valid, 1.0 / torch.where(valid, v, 1.0), 0.0)
     inv_d = torch.where(
         valid, 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12), 0.0)
-    ivar_sum = ivar.sum(dim=(-3, -1))
-    idepth_sum = (ivar * inv_d).sum(dim=(-3, -1))
-    num = valid.sum(dim=(-3, -1)).to(depth.dtype)
+    ivar_sum = _sum4(ivar)
+    idepth_sum = _sum4(ivar * inv_d)
+    num = _sum4(valid.to(depth.dtype))
     any_valid = num > 0
     depth_out = torch.where(
         any_valid, ivar_sum / torch.where(any_valid, idepth_sum, 1.0), 0.0)
@@ -47,3 +65,29 @@ def build_depth_var_pyramid(depth0: torch.Tensor, var0: torch.Tensor,
         depths.append(d)
         vars_.append(v)
     return depths, vars_
+
+
+def refresh_depth_pyramid(st: dstate.DepthMapState, cfg: ELLCConfig
+                          ) -> Tuple[dstate.DepthMapState, List[torch.Tensor],
+                                     List[torch.Tensor]]:
+    """updateDepthImage for the tracker: the state with its border masked
+    out of ``valid`` (``state.to_depth_image``) and the depth and
+    variance pyramids of its level-0 maps, ``cfg.num_levels`` levels, for
+    one state or a batch.  The CUDA kernel for a CUDA state (one launch),
+    :func:`plain_refresh_depth_pyramid` for a CPU state."""
+    if st.valid.device.type == "cpu":
+        return plain_refresh_depth_pyramid(st, cfg)
+    valid, depths, vars_ = depth_refresh_kernel.refresh(
+        st.valid, st.idepth_smoothed, st.var_smoothed, cfg.border,
+        cfg.num_levels)
+    return st.replace(valid=valid), depths, vars_
+
+
+def plain_refresh_depth_pyramid(st: dstate.DepthMapState, cfg: ELLCConfig
+                                ) -> Tuple[dstate.DepthMapState,
+                                           List[torch.Tensor],
+                                           List[torch.Tensor]]:
+    """:func:`refresh_depth_pyramid` in plain PyTorch, on any device."""
+    st, depth0, var0 = dstate.to_depth_image(st, cfg)
+    depths, vars_ = build_depth_var_pyramid(depth0, var0, cfg.num_levels)
+    return st, depths, vars_

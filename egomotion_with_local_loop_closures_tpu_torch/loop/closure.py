@@ -226,8 +226,8 @@ class LoopCloser:
         cands, stats, rels = self._candidates(frame_id, hist, pose)
         if not cands:
             return []
-        cur_levels = alignment.make_current_levels(
-            pyramid.build_pyramid(image, cfg.num_levels))
+        cur_levels = alignment.current_levels(
+            pyramid.build_levels(image, cfg.num_levels))
         kf, w = stack_levels(self.entries, cands)
         idx = torch.as_tensor(cands, device=rels.device)
         poses, _ = alignment.align_const_weight(kf, w, cur_levels, rels[idx],

@@ -66,10 +66,9 @@ def _batched_trials(kf_levels, weight_levels,
     """Every candidate's trial at once; the keyframe levels, weights,
     depth states and images carry a leading candidate axis B.  Returns
     (poses (B, 6), states (B, H, W), rescales (B,), seeds% (B,))."""
-    cur_levels = alignment.make_current_levels(
-        pyramid.build_pyramid(image, cfg.num_levels))
-    gx, gy = pyramid.gradients(image)
-    maxgrad = pyramid.max_abs_gradient(gx, gy)
+    levels = pyramid.build_levels(image, cfg.num_levels, max_grad=True)
+    cur_levels = alignment.current_levels(levels)
+    maxgrad = levels.maxgrad
     B = kf_images.shape[0]
     poses, _ = alignment.align_const_weight(
         kf_levels, weight_levels, cur_levels,

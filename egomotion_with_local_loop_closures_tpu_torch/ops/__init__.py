@@ -6,9 +6,15 @@
 - ``stereo_kernel``: K2, the epipolar line stereo and EKF observation of
   one frame (``csrc/stereo_kernel.cu``);
 - ``propagate_kernel``: the candidate merge of keyframe depth
-  propagation, summed in a fixed order (``csrc/propagate_kernel.cu``).
+  propagation, summed in a fixed order (``csrc/propagate_kernel.cu``);
+- K4, the rest of a tracked frame: ``se3_kernel``, the SE(3) compose and
+  relative pose (``csrc/se3_kernel.cu``); ``pyramid_kernel``, the
+  frame's pyramid, gradients and max-gradient map
+  (``csrc/pyramid_kernel.cu``); ``depth_refresh_kernel``, the keyframe's
+  depth-pyramid refresh (``csrc/depth_refresh_kernel.cu``).
 
-K1 and K2 share their device helpers, ``csrc/ellc_device.cuh``.  Each
+K1, K2 and the compose share their device helpers,
+``csrc/ellc_device.cuh``.  Each
 source is compiled with ``nvcc`` on first use, from this checkout, into
 ``build/`` (one shared library per hash of the source, the headers of
 ``csrc/`` and the flags, loaded with ``ctypes``): :func:`build`.

@@ -90,7 +90,15 @@ def plain_trajectory(kf: alignment.KeyframeLevel,
     """``num_iters`` plain GN iterations of a level with no video frozen:
     each step from the last step's pose, whatever its stop.  ``term_w``:
     the termination weights on the pose's device, made outside a CUDA
-    graph capture (which refuses a host copy)."""
+    graph capture (which refuses a host copy).  A float64 run of CUDA
+    tensors (a referee) runs on the CPU and comes back to the card: the
+    card's compose (``ops/se3_kernel.py``) takes float32 poses only."""
+    if pose0.is_cuda and pose0.dtype != torch.float32:
+        cpu = plain_trajectory(
+            type(kf)(*(t.cpu() for t in kf)),
+            type(cur)(*(t.cpu() for t in cur)), pose0.cpu(), level, cfg,
+            num_iters, term_w.cpu())
+        return Trajectory(*(t.to(pose0.device) for t in cpu))
     intr = cfg.level_intrinsics(level)
     pose, start = pose0, _start(pose0)
     rows = []

@@ -36,8 +36,10 @@ atomic (the keyframe step's propagate merges in a fixed order,
 
 The launch counts of the port's hand-written kernels, K3
 (``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``), K2
-(``ops/stereo_kernel.launches``) and propagate's merge
-(``ops/propagate_kernel.launches``): the warm-up's launches are counted
+(``ops/stereo_kernel.launches``), propagate's merge
+(``ops/propagate_kernel.launches``) and K4's compose, pyramid and refresh
+(``ops/se3_kernel``, ``ops/pyramid_kernel``,
+``ops/depth_refresh_kernel``): the warm-up's launches are counted
 apart (each module's ``warmup_launches``), and the capture's wrapper
 calls, which launch nothing, are counted only to check the graph: its
 kernel nodes of these, found by their functions' names, must be as
@@ -60,12 +62,16 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from egomotion_with_local_loop_closures_tpu_torch.ops import (
-    gn_kernel, propagate_kernel, reg_kernel, stereo_kernel)
+    depth_refresh_kernel, gn_kernel, propagate_kernel, pyramid_kernel,
+    reg_kernel, se3_kernel, stereo_kernel)
 
 # the modules of the hand-written kernels whose launches a graph counts,
-# by the name of the kernel: K3, K1, K2 and propagate's merge
+# by the name of the kernel: K3, K1, K2, propagate's merge and K4's three
+# (the SE(3) compose, the pyramid and gradients, the depth-pyramid
+# refresh)
 _KERNELS = {"k3": reg_kernel, "k1": gn_kernel, "k2": stereo_kernel,
-            "merge": propagate_kernel}
+            "merge": propagate_kernel, "se3": se3_kernel,
+            "pyramid": pyramid_kernel, "refresh": depth_refresh_kernel}
 
 # CUgraphNodeType values of libcuda's graph API
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
@@ -129,7 +135,7 @@ class Graph:
     out_spec: Any
     # output leaf -> input leaf, for outputs that are static inputs
     through: Dict[int, int]
-    # per kernel ("k3", "k1", "k2", "merge"): its nodes by wrapper, so the
+    # per kernel label of _KERNELS: its nodes by wrapper, so the
     # launches of one replay, and the launches of the eager warm-up
     kernel_nodes: Dict[str, Dict[str, int]]
     warmup: Dict[str, Dict[str, int]]
@@ -155,8 +161,8 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
                  ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     """The nodes of a captured (not yet instantiated) graph by type, from
     ``raw_cuda_graph()`` and libcuda's cuGraphGetNodes (the runtime's
-    cudaGraphGetNodes), and its K3, K1, K2 and merge kernel nodes by
-    wrapper (``{"k3": {...}, "k1": {...}, "k2": {...}, "merge": {...}}``),
+    cudaGraphGetNodes), and the hand-written kernels' nodes by label of
+    ``_KERNELS`` and wrapper (``{"k3": {...}, "k1": {...}, ...}``),
     from each kernel node's function
     (cuGraphKernelNodeGetParams) and its name (cuFuncGetName, or
     cuKernelGetName for a library kernel)."""

@@ -91,6 +91,14 @@ def make_current_levels(images: Sequence[torch.Tensor]
     return tuple(CurrentLevel(img, *pyramid.gradients(img)) for img in images)
 
 
+def current_levels(levels: pyramid.Levels) -> Tuple[CurrentLevel, ...]:
+    """The current levels of a frame's ``pyramid.build_levels`` (its
+    pyramid and every level's gradients, one kernel launch a level on the
+    card)."""
+    return tuple(CurrentLevel(*lv) for lv in zip(
+        levels.images, levels.gradx, levels.grady))
+
+
 def _pixel_terms(kf: KeyframeLevel, cur: CurrentLevel, pose: torch.Tensor,
                  intr: Tuple[float, float, float, float], cfg: ELLCConfig,
                  y_offset: int = 0):
