@@ -97,13 +97,15 @@ Phases, each announced on its own line:
    (each pose within 1e-6 of the twin, or no farther from float64 than
    the twin plus 1e-6; the bit-equal poses counted), a second call
    bit-equal; then each one's device time per call and its twin's from
-   CUDA-graph replays, in turns, beside its bound;
+   CUDA-graph replays, in turns, beside its bound and beside the floor
+   of that timing (a one-node graph of torch.cuda._sleep(1)); one
+   build_levels call one launch;
 4. main path: runner.run_sequence over the first 129 frames of
    reference_build/run_gn at 480x270 under the parity config; K3's, K1's
    and K2's launch counts must equal what the frame schedule implies (K1:
    a tracked frame's align one gn_level_cluster launch at each of levels
    2-3 and a gn_step launch an iteration at levels 0-1, 2 + 11; K2: one
-   a track_refine step; K4: a step's compose, four pyramid levels and one
+   a track_refine step; K4: a step's compose, one pyramid launch and one
    refresh, two in a keyframe step, and the init's), every pose must be
    finite and seeds% positive; prints tracked frames/s after the first
    interval.  Then the same frames with intervals_per_dispatch 1 and 4
@@ -233,8 +235,9 @@ just before it and reads them just after, and holds them to a hand count
 of its schedule (K4 on the LC paths: the launches of the graph
 replays, the eager calls printed); phase 14 holds each replayed step to
 the eager step's launches, one of K2 a track_refine step, one of each
-merge kernel a keyframe step, K4's per step, and a track_refine graph
-without the loop window under 150 kernel nodes.  The
+merge kernel a keyframe step, K4's per step (one pyramid node), and a
+track_refine graph without the loop window or a replay to
+TRACK_GRAPH_NODES (25) kernel nodes.  The
 last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -437,19 +440,20 @@ def k2_expected(path):
 
 # K4 (ops/se3_kernel.py, ops/pyramid_kernel.py, ops/depth_refresh_kernel.py):
 # the SE(3) compose, one se3_compose launch a lie.compose or lie.relative
-# call; the pyramid and gradients, one pyramid_level launch a level of
-# pyramid.build_levels (four at 4 levels), or one for a gradients or
+# call; the pyramid and gradients, one pyramid_level launch a
+# pyramid.build_levels call of up to four levels, or a gradients or
 # max_abs_gradient call; the keyframe's depth-pyramid refresh, one
 # depth_refresh launch a call.  From the step bodies (runtime/pipeline.py):
 # a track_refine step composes its world pose once, builds the frame's four
-# levels with their gradients and refreshes the keyframe's depth pyramid
-# once; a keyframe step the same (its four levels, with the map, become the
-# new keyframe's) and a second refresh (the old keyframe's and the new
-# one's); a replay step with an initial rotation one relative more;
-# init_pipeline, or make_keyframe alone (a recovered frame), four levels
-# and one refresh; a batched recovery trial the constant-weight align's 32
-# iterations (12 + 9 + 7 + 4) a compose each, the frame's four levels and
-# the templates' gradients at each level (four), and the hit one compose
+# levels with their gradients (one launch) and refreshes the keyframe's
+# depth pyramid once; a keyframe step the same (its four levels, with the
+# map, become the new keyframe's) and a second refresh (the old keyframe's
+# and the new one's); a replay step with an initial rotation one relative
+# more; init_pipeline, or make_keyframe alone (a recovered frame), one
+# pyramid launch and one refresh; a batched recovery trial the
+# constant-weight align's 32 iterations (12 + 9 + 7 + 4) a compose each,
+# the frame's levels (one launch) and the templates' gradients at each
+# level (four, track/alignment.py _template_jacobian), and the hit one compose
 # for its world pose.  Per path: (track_refine steps, keyframe steps,
 # replay steps, inits, trials, hits), the steps as counted for K3 above.
 # The LC paths' eager calls (the init, each batch's and push's composes,
@@ -457,8 +461,8 @@ def k2_expected(path):
 # hang on the window's gates: they are held to the launches of the graph
 # replays alone, and their eager launches are printed.
 K4_NAMES = ("se3_compose", "pyramid_level", "depth_refresh")
-K4_TRACK, K4_KEYFRAME, K4_REPLAY = (1, 4, 1), (1, 4, 2), (1, 0, 0)
-K4_INIT, K4_TRIAL = (0, 4, 1), (32, 8, 0)
+K4_TRACK, K4_KEYFRAME, K4_REPLAY = (1, 1, 1), (1, 1, 2), (1, 0, 0)
+K4_INIT, K4_TRIAL = (0, 1, 1), (32, 5, 0)
 K4_PATHS = {"gn_run_sequence": (112, 16, 0, 1, 0, 0),
             "lc_bootstrap": (69, 10, 0, 0, 0, 0),
             "lc_mode": (250, 36, 79 + 2 * 32, 0, 0, 0),
@@ -466,9 +470,10 @@ K4_PATHS = {"gn_run_sequence": (112, 16, 0, 1, 0, 0),
             "batched_videos": (27, 4, 0, 1, 0, 0),
             "synthetic": (56, 8, 0, 1, 0, 0)}
 K4_GRAPHED_ONLY = ("lc_bootstrap", "lc_mode")
-# phase 14: a track_refine graph's kernel nodes with K4, the loop window
-# off (517 before it)
-TRACK_GRAPH_NODES_MAX = 150
+# phase 14: a track_refine graph's kernel nodes, the loop window off and
+# not a replay (517 before K4, 28 with the pyramid's four launches): K3 1,
+# K1 13, K2 1, K4 3 and seven ATen kernels
+TRACK_GRAPH_NODES = 25
 # Phase 3e: the compose's float32 operations a pose, counted by hand from
 # csrc/se3_kernel.cu (two exps ~150 each, the 4x4 product 84, the log
 # ~170); the bytes each kernel must move, each read once or written once:
@@ -484,6 +489,56 @@ SE3_OPS, SE3_BYTES = 570, 2 * 24 + 24
 PYR_BYTES_IN, PYR_BYTES_GRAD, PYR_BYTES_UP = 4, 8, 4
 PYR_OPS_PX, PYR_OPS_UP = 6, 54
 REF_BYTES_PX, REF_BYTES_CELL, REF_OPS_PX, REF_OPS_CELL = 18, 8, 6, 24
+
+
+# phase 3e's sizes at 270x480: one video, and batches whose copy b is
+# rolled by (dy b, dx b) pixels, its pose moved by 2e-4 b
+K4_SIZES = (("V=1", None), ("V=8", (8, 1, 2)), ("B=20", (20, 7, 23)))
+
+
+def k4_case(st, img, spec):
+    """Phase 3e's inputs of one size of K4_SIZES from a pipeline state and
+    a frame: (image, depth state, pose, world pose)."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS, DepthMapState)
+    if spec is None:
+        return img, st.depth, st.prev_wrt_kf, st.kf.world_pose
+    B, dy, dx = spec
+
+    def stack(t):
+        return torch.stack([torch.roll(t, (dy * b, dx * b), (-2, -1))
+                            for b in range(B)])
+    step = 2e-4 * torch.arange(B, device=img.device)[:, None]
+    return (stack(img), DepthMapState(**{n: stack(getattr(st.depth, n))
+                                         for n in FIELDS}),
+            st.prev_wrt_kf + step, st.kf.world_pose - step)
+
+
+def pyramid_work(images):
+    """(compulsory bytes, float32 operations) of one build_levels call
+    (gradients, no map) whose levels are ``images``."""
+    sizes = [im.numel() for im in images]
+    return (PYR_BYTES_IN * sizes[0] + PYR_BYTES_GRAD * sum(sizes)
+            + PYR_BYTES_UP * sum(sizes[1:]),
+            PYR_OPS_PX * sum(sizes) + PYR_OPS_UP * sum(sizes[1:]))
+
+
+def refresh_work(depths):
+    """(compulsory bytes, float32 operations) of one refresh whose depth
+    levels are ``depths``."""
+    cells = [d.numel() for d in depths]
+    return (REF_BYTES_PX * cells[0] + REF_BYTES_CELL * sum(cells[1:]),
+            REF_OPS_PX * cells[0] + REF_OPS_CELL * sum(cells[1:]))
+
+
+def floor_ms(reps=200):
+    """The floor of ``card_timing.device_ms`` on this card: a one-node
+    graph of ``torch.cuda._sleep(1)``, timed the same way."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
+        import device_ms
+    return device_ms(lambda: torch.cuda._sleep(1), reps)[0]
 
 
 def k4_expected(path):
@@ -597,13 +652,14 @@ def compare(ref, got, fields):
 
 def kernel_label(mangled):
     """reg_kernel<kFill, kOccl>, gn_level_cluster, gn_step,
-    stereo_observe, propagate_link or propagate_merge from a mangled
-    kernel name."""
+    stereo_observe, propagate_link, propagate_merge, se3_compose,
+    pyramid_level or depth_refresh from a mangled kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
     if m:
         return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
     m = re.search(r"\d+(gn_level_cluster|gn_step|stereo_observe|"
-                  r"propagate_link|propagate_merge)E", mangled)
+                  r"propagate_link|propagate_merge|se3_compose|"
+                  r"pyramid_level|depth_refresh)E", mangled)
     return m.group(1) if m else mangled
 
 
@@ -1334,25 +1390,24 @@ def k4_phase(st, img, cfg, gpu):
     bound by)."""
     import torch
     from egomotion_with_local_loop_closures_tpu_torch.depth import fusion
-    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
-        FIELDS, DepthMapState)
     from egomotion_with_local_loop_closures_tpu_torch.geom import lie
     from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
-    from egomotion_with_local_loop_closures_tpu_torch.ops import se3_kernel
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        pyramid_kernel, se3_kernel)
     from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
         import bound_ms, device_ms
     L = cfg.num_levels
     worst = dict.fromkeys(K4_NAMES, 0.0)
     timed = {name: {} for name in K4_NAMES}
+    # the floor of the timing: a graph of one node that does nothing
+    floor = [floor_ms(), floor_ms()]
+    print(f"device_ms floor (a one-node graph of torch.cuda._sleep(1)): "
+          f"{floor[0]:.5f} / {floor[1]:.5f} ms a replay; on {gpu}")
 
     def turns(kern, plain, reps=200):
         ts = [device_ms(f, r)[0] for f, r in
               ((plain, 20), (kern, reps), (kern, reps), (plain, 20))]
         return (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2, ts
-
-    def stack(t, B, dy, dx):
-        return torch.stack([torch.roll(t, (dy * b, dx * b), (-2, -1))
-                            for b in range(B)])
 
     def differ(a, b):
         return int((~((a == b) | (a.isnan() & b.isnan()))).sum())
@@ -1365,18 +1420,8 @@ def k4_phase(st, img, cfg, gpu):
         acc = torch.sqrt(acc)
         return acc[..., None] if keepdim else acc
 
-    for label, spec in (("V=1", None), ("V=8", (8, 1, 2)),
-                        ("B=20", (20, 7, 23))):
-        if spec is None:
-            image, depth = img, st.depth
-            pose, world = st.prev_wrt_kf, st.kf.world_pose
-        else:
-            B, dy, dx = spec
-            image = stack(img, B, dy, dx)
-            depth = DepthMapState(**{n: stack(getattr(st.depth, n), B, dy, dx)
-                                     for n in FIELDS})
-            step = 2e-4 * torch.arange(B, device=img.device)[:, None]
-            pose, world = st.prev_wrt_kf + step, st.kf.world_pose - step
+    for label, spec in K4_SIZES:
+        image, depth, pose, world = k4_case(st, img, spec)
         n_img = image[..., 0, 0].numel()
         # the SE(3) compose and relative: the pipeline's world pose
         for name, fn, plain, inv in (
@@ -1409,7 +1454,8 @@ def k4_phase(st, img, cfg, gpu):
         print(f"compose {label}: device time per call {k_ms:.5f} ms, the "
               f"twin {p_ms:.5f} ms (turns {' '.join(f'{t:.5f}' for t in ts)}"
               f"); bound {bound:.3g} ms by {by}, {100 * bound / k_ms:.3g} % "
-              f"of it reached; on {gpu}")
+              f"of it reached; the device_ms floor {floor[0]:.5f} ms; on "
+              f"{gpu}")
         # the frame's pyramid and gradients (the track_refine step's call,
         # no map), and with the keyframe step's map
         for mg in (False, True):
@@ -1428,19 +1474,20 @@ def k4_phase(st, img, cfg, gpu):
         print(f"pyramid {label}: {L} levels of {tuple(image.shape)}, every "
               f"level, gradient and the map bit-equal to the twin; a second "
               f"call bit-equal")
+        pyramid_kernel.reset_launches()
+        pyramid.build_levels(image, L)
+        check(pyramid_kernel.launches["pyramid_level"] == 1,
+              f"pyramid {label}: one launch a build_levels call, "
+              f"{pyramid_kernel.launches}")
         k_ms, p_ms, ts = turns(lambda: pyramid.build_levels(image, L),
                                lambda: pyramid.plain_build_levels(image, L))
-        sizes = [im[..., 0, 0].numel() * im.shape[-2] * im.shape[-1]
-                 for im in got.images]
-        bound, by = bound_ms(
-            PYR_BYTES_IN * sizes[0] + PYR_BYTES_GRAD * sum(sizes)
-            + PYR_BYTES_UP * sum(sizes[1:]),
-            PYR_OPS_PX * sum(sizes) + PYR_OPS_UP * sum(sizes[1:]))
+        bound, by = bound_ms(*pyramid_work(got.images))
         timed["pyramid_level"][label] = (k_ms, p_ms, bound, by)
-        print(f"pyramid {label}: device time per call ({L} launches) "
+        print(f"pyramid {label}: device time per call (one launch) "
               f"{k_ms:.5f} ms, the twin {p_ms:.5f} ms (turns "
               f"{' '.join(f'{t:.5f}' for t in ts)}); bound {bound:.6f} ms by "
-              f"{by}, {100 * bound / k_ms:.1f} % of it reached; on {gpu}")
+              f"{by}, {100 * bound / k_ms:.1f} % of it reached; the "
+              f"device_ms floor {floor[0]:.5f} ms; on {gpu}")
         # the keyframe's depth-pyramid refresh
         got = fusion.refresh_depth_pyramid(depth, cfg)
         again = fusion.refresh_depth_pyramid(depth, cfg)
@@ -1454,17 +1501,14 @@ def k4_phase(st, img, cfg, gpu):
         k_ms, p_ms, ts = turns(
             lambda: fusion.refresh_depth_pyramid(depth, cfg),
             lambda: fusion.plain_refresh_depth_pyramid(depth, cfg))
-        cells = [d.numel() for d in got[1]]
-        bound, by = bound_ms(
-            REF_BYTES_PX * cells[0] + REF_BYTES_CELL * sum(cells[1:]),
-            REF_OPS_PX * cells[0] + REF_OPS_CELL * sum(cells[1:]))
+        bound, by = bound_ms(*refresh_work(got[1]))
         timed["depth_refresh"][label] = (k_ms, p_ms, bound, by)
         print(f"refresh {label}: {tuple(depth.valid.shape)}, the valid "
               f"plane and {L} levels bit-equal to the twin, a second call "
               f"bit-equal; device time per call {k_ms:.5f} ms, the twin "
               f"{p_ms:.5f} ms (turns {' '.join(f'{t:.5f}' for t in ts)}); "
               f"bound {bound:.6f} ms by {by}, {100 * bound / k_ms:.1f} % of "
-              f"it reached; on {gpu}")
+              f"it reached; the device_ms floor {floor[0]:.5f} ms; on {gpu}")
     return worst, timed
 
 
@@ -1659,6 +1703,10 @@ def main() -> int:
         k_sass = sass_counts(lib_k, cuobjdump)
         for fn, res in kernel_resources(lib_k, cuobjdump).items():
             print(f"{fn}: {res}; {sum(k_sass[fn])} SASS instructions")
+    # the pyramid's regions are dynamic shared memory too
+    print(f"pyramid_level: "
+          f"{pyramid_kernel._library().ellc_pyramid_smem_bytes()} B of "
+          f"dynamic shared memory a block")
     # K2's registers, stack and shared memory (its list and the current
     # image's box are dynamic shared memory, kSmemBytes a block)
     res_k2 = kernel_resources(lib_k2, cuobjdump)["stereo_observe"]
@@ -2871,12 +2919,16 @@ def main() -> int:
                           True if r["init_rotation"] else None)
         check({**r["se3"], **r["pyramid"], **r["refresh"]} == k4_want,
               f"graph {r['step']}: K4's nodes {k4_want}, found by name")
-        if r["step"] == "track_refine_step" and not \
+        if r["step"] == "track_refine_step" and not r["replay"] and not \
                 pipeline._needs_window(r["cfg"]):
-            check(r["nodes"].get("kernel", 0) < TRACK_GRAPH_NODES_MAX,
+            print(f"graph track_refine_step (lead {r['lead']}): "
+                  f"{r['nodes'].get('kernel')} kernel nodes, the pyramid's "
+                  f"{r['pyramid']}")
+            check(r["nodes"].get("kernel", 0) == TRACK_GRAPH_NODES
+                  and r["pyramid"] == {"pyramid_level": 1},
                   f"a track_refine graph holds {r['nodes'].get('kernel')} "
-                  f"kernel nodes, under {TRACK_GRAPH_NODES_MAX} (517 before "
-                  f"K4)")
+                  f"kernel nodes, {TRACK_GRAPH_NODES} (517 before K4), one "
+                  f"of them the pyramid's")
     print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
           f"{sum(pools14.values()) / 2**20:.1f} MiB")
 
@@ -3070,7 +3122,8 @@ def main() -> int:
              "no PyTorch call composes SE(3) twists"),
             ("pyramid_level", "pyramid_kernel.build_levels",
              "pyramid_kernel.cu", "image/pyramid.py:52",
-             f"one build_levels call, {cfg.num_levels} launches",
+             f"one build_levels call of {cfg.num_levels} levels, one "
+             f"launch",
              "no single PyTorch call blurs with edge replication, "
              "decimates and takes one-sided border gradients"),
             ("depth_refresh", "depth_refresh_kernel.refresh",

@@ -11,8 +11,8 @@ reference does (Frame.cpp:60-83).
 
 For CUDA tensors :func:`build_levels`, :func:`build_pyramid`,
 :func:`gradients` and :func:`max_abs_gradient` launch the hand-written
-kernel of ``ops/pyramid_kernel.py`` (one launch a level, bit-equal to the
-plain code); for CPU tensors they run their plain twins, the ``plain_*``
+kernel of ``ops/pyramid_kernel.py`` (one launch for a frame's four
+levels, bit-equal to the plain code); for CPU tensors they run their plain twins, the ``plain_*``
 functions here.  :func:`build_levels` gives a frame's whole pyramid with
 every level's gradients (and the level-0 max-gradient map) from one call.
 """
@@ -64,7 +64,7 @@ def build_levels(img: torch.Tensor, num_levels: int,
                  max_grad: bool = False) -> Levels:
     """The pyramid of an (H, W) image or a stack (..., H, W), each level's
     gradients and, with ``max_grad``, level 0's max-gradient map: the CUDA
-    kernel for a CUDA tensor (one launch a level), :func:`plain_build_levels`
+    kernel for a CUDA tensor (one launch), :func:`plain_build_levels`
     for a CPU tensor."""
     if img.device.type == "cpu":
         return plain_build_levels(img, num_levels, max_grad)

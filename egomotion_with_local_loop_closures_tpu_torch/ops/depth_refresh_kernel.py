@@ -6,7 +6,8 @@ states and runs its plain twin, ``depth/state.py::to_depth_image`` then
 ``depth/fusion.py::build_depth_var_pyramid``, for CPU states.  The CUDA
 source is ``csrc/depth_refresh_kernel.cu``: one ``depth_refresh`` launch
 writes the border-masked ``valid`` plane, level 0's depth and variance and
-every fused level above it, for one state (H, W) or a batch (B, H, W).
+every fused level above it, for one state (H, W) or a batch (B, H, W); a
+warp owns 4x32 pixels and fuses their levels in registers and shuffles.
 It is bit-equal to the twin; what bounds it is written at the top of the
 source.
 
@@ -137,6 +138,12 @@ def refresh(valid: torch.Tensor, idepth_smoothed: torch.Tensor,
     return out
 
 
+def _empty(shape: Tuple[int, ...], dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """An output plane, written whole by the kernel."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def _launch(lib: ctypes.CDLL, valid: torch.Tensor, idepth_smoothed:
             torch.Tensor, var_smoothed: torch.Tensor, border: int,
             num_levels: int, stream: int
@@ -150,10 +157,9 @@ def _launch(lib: ctypes.CDLL, valid: torch.Tensor, idepth_smoothed:
     shapes = [(H, W)]
     for _ in range(num_levels - 1):
         shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
-    valid_out = torch.empty_like(valid)
-    depths = [torch.empty(lead + s, dtype=torch.float32, device=dev)
-              for s in shapes]
-    vars_ = [torch.empty_like(d) for d in depths]
+    valid_out = _empty(valid.shape, torch.bool, dev)
+    depths = [_empty(lead + s, torch.float32, dev) for s in shapes]
+    vars_ = [_empty(lead + s, torch.float32, dev) for s in shapes]
     ptrs = ctypes.c_void_p * MAX_LEVELS
     err = lib.ellc_depth_refresh(
         ctypes.c_void_p(valid.data_ptr()), ctypes.c_void_p(ids.data_ptr()),

@@ -4,11 +4,11 @@ hand-written CUDA kernel.
 ``image/pyramid.py`` calls this module for CUDA tensors
 (``build_levels``, ``build_pyramid``, ``gradients``, ``max_abs_gradient``)
 and runs its plain twins for CPU tensors.  The CUDA source is
-``csrc/pyramid_kernel.cu``: one ``pyramid_level`` launch a level, which
-reads level l and writes level l + 1 with level l's gradients (and at
-level 0, when asked, the max-gradient map), for one image or a batch
-(B, H, W) in the same launch.  It is bit-equal to the twin; what bounds it
-is written at the top of the source.
+``csrc/pyramid_kernel.cu``: one ``pyramid_level`` launch writes up to
+:data:`MAX_LEVELS` levels, every level's gradients and, when asked, level
+0's max-gradient map, for one image or a batch (B, H, W); a block owns a
+tile at every level and recomputes its halos.  It is bit-equal to the
+twin; what bounds it is written at the top of the source.
 
 For CUDA tensors every function here launches the kernel or raises; it
 never falls back.  Launches are counted in :data:`launches`; a call made
@@ -30,8 +30,11 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch import ops
 
 SOURCE: Path = ops.CSRC / "pyramid_kernel.cu"
+# the most levels a launch writes (csrc/pyramid_kernel.cu kMaxLevels)
+MAX_LEVELS = 4
 
-# Launches on the CUDA path since the last reset_launches(): one a level.
+# Launches on the CUDA path since the last reset_launches(): one a
+# build_levels call of up to MAX_LEVELS levels.
 launches: Dict[str, int] = {"pyramid_level": 0}
 # Launches of the eager warm-ups before CUDA graph captures, kept apart
 # from launches (runtime/graphs.py), since the last reset_launches().
@@ -85,8 +88,8 @@ def build() -> Path:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the library's entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ellc_pyramid_level.argtypes = [p] * 5 + [i, i, i, p]
-    lib.ellc_pyramid_level.restype = i
+    lib.ellc_pyramid_levels.argtypes = [p] * 5 + [i, i, i, i, p]
+    lib.ellc_pyramid_levels.restype = i
     lib.ellc_pyramid_maxgrad.argtypes = [p] * 3 + [i, i, i, p]
     lib.ellc_pyramid_maxgrad.restype = i
     return lib
@@ -129,8 +132,9 @@ def build_levels(img: torch.Tensor, num_levels: int, grads: bool = True,
     """The pyramid of ``img`` (H, W) or (..., H, W), float32 on the card:
     (images, gx, gy, max-gradient map of level 0), the gradients of every
     level when ``grads`` (else two empty lists) and the map when
-    ``max_grad`` (else None).  One launch a level that writes something:
-    ``num_levels``, or ``num_levels - 1`` without gradients."""
+    ``max_grad`` (else None).  One launch for up to :data:`MAX_LEVELS`
+    levels (one more for each further three), none when there is nothing
+    to write."""
     _check("img", img)
     with torch.cuda.device(img.device):
         out = _levels(_library(), img, num_levels, grads, max_grad,
@@ -139,50 +143,60 @@ def build_levels(img: torch.Tensor, num_levels: int, grads: bool = True,
     return out[:-1]
 
 
+def _empty(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """An output plane, written whole by the kernel."""
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def _levels(lib: ctypes.CDLL, img: torch.Tensor, num_levels: int,
             grads: bool, max_grad: bool, stream: int):
     """:func:`build_levels`'s launches of ``lib`` on ``stream``, any
-    device; returns its four results and the number of launches."""
+    device; returns its four results and the number of launches.  Past
+    :data:`MAX_LEVELS` levels a launch starts from the last level of the
+    one before, whose gradients it leaves alone."""
     if num_levels < 1:
         raise ValueError(f"num_levels {num_levels}: at least 1")
     img = img.contiguous()
-    lead = img.shape[:-2]
+    lead, dev = img.shape[:-2], img.device
+    shapes = [tuple(img.shape[-2:])]
+    for level in range(1, num_levels):
+        H, W = shapes[-1][0] // 2, shapes[-1][1] // 2
+        if H < 2 or W < 2:
+            raise ValueError(f"level {level} of {tuple(img.shape)} would be "
+                             f"{H}x{W}: the kernel takes levels of at least "
+                             f"2x2")
+        shapes.append((H, W))
+    imgs = [img] + [_empty(lead + s, dev) for s in shapes[1:]]
+    gxs = [_empty(lead + s, dev) for s in shapes] if grads else []
+    gys = [_empty(lead + s, dev) for s in shapes] if grads else []
+    mg = _empty(img.shape, dev) if max_grad else None
+    if num_levels == 1 and not grads and not max_grad:
+        return imgs, gxs, gys, mg, 0
+    ptrs = ctypes.c_void_p * MAX_LEVELS
     B = img[..., 0, 0].numel()
-    imgs = [img]
-    gxs: List[torch.Tensor] = []
-    gys: List[torch.Tensor] = []
-    mg = torch.empty_like(img) if max_grad else None
-    n = 0
-    for level in range(num_levels):
-        src = imgs[-1]
-        H, W = src.shape[-2:]
-        last = level == num_levels - 1
-        if last and not grads:
-            break
-        if not last and (H // 2 < 2 or W // 2 < 2):
-            raise ValueError(f"level {level + 1} of {tuple(img.shape)} would "
-                             f"be {H // 2}x{W // 2}: the kernel takes levels "
-                             f"of at least 2x2")
-        dst = (None if last else torch.empty(
-            lead + (H // 2, W // 2), dtype=torch.float32, device=img.device))
-        gx = torch.empty_like(src) if grads else None
-        gy = torch.empty_like(src) if grads else None
-        _raise_on(lib.ellc_pyramid_level(
-            _ptr(src), _ptr(dst), _ptr(gx), _ptr(gy),
-            _ptr(mg if level == 0 else None), B, H, W,
-            ctypes.c_void_p(stream)))
+    first, n = 0, 0
+    while True:
+        last = min(first + MAX_LEVELS, num_levels)
+        chunk = range(first, last)
+        own = [grads and (level > first or first == 0) for level in chunk]
+        _raise_on(lib.ellc_pyramid_levels(
+            _ptr(imgs[first]),
+            ptrs(None, *(imgs[level].data_ptr() for level in chunk[1:])),
+            ptrs(*(gxs[level].data_ptr() if g else None
+                   for level, g in zip(chunk, own))),
+            ptrs(*(gys[level].data_ptr() if g else None
+                   for level, g in zip(chunk, own))),
+            _ptr(mg if first == 0 else None), B, *shapes[first],
+            last - first, ctypes.c_void_p(stream)))
         n += 1
-        if dst is not None:
-            imgs.append(dst)
-        if grads:
-            gxs.append(gx)
-            gys.append(gy)
-    return imgs, gxs, gys, mg, n
+        if last == num_levels:
+            return imgs, gxs, gys, mg, n
+        first = last - 1
 
 
 def max_abs_gradient(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """The dilated max-gradient map of gradient planes (H, W) or
-    (..., H, W), float32 on the card: one launch."""
+    (..., H, W), float32 on the card: one launch of the same kernel."""
     _check("gx", gx)
     _check("gy", gy)
     if gx.shape != gy.shape or gx.device != gy.device:
@@ -199,7 +213,7 @@ def _maxgrad(lib: ctypes.CDLL, gx: torch.Tensor, gy: torch.Tensor,
              stream: int) -> torch.Tensor:
     """:func:`max_abs_gradient`'s launch of ``lib`` on ``stream``."""
     gx, gy = gx.contiguous(), gy.contiguous()
-    out = torch.empty_like(gx)
+    out = _empty(gx.shape, gx.device)
     H, W = gx.shape[-2:]
     _raise_on(lib.ellc_pyramid_maxgrad(
         _ptr(gx), _ptr(gy), _ptr(out), gx[..., 0, 0].numel(), H, W,

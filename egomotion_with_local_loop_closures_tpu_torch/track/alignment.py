@@ -93,7 +93,7 @@ def make_current_levels(images: Sequence[torch.Tensor]
 
 def current_levels(levels: pyramid.Levels) -> Tuple[CurrentLevel, ...]:
     """The current levels of a frame's ``pyramid.build_levels`` (its
-    pyramid and every level's gradients, one kernel launch a level on the
+    pyramid and every level's gradients, one kernel launch on the
     card)."""
     return tuple(CurrentLevel(*lv) for lv in zip(
         levels.images, levels.gradx, levels.grady))

@@ -28,10 +28,16 @@ shim gives each block of a cluster.  ``atomicAdd`` on an int is a
 ``__ldcg`` a plain load, ``__popc`` the compiler's builtin, and
 ``cudaFuncSetAttribute`` does nothing: one OS thread runs all fibers.
 ``atomicExch`` on an int is a ``std::atomic_ref`` exchange and
-``cudaMemsetAsync`` a ``memset``.  The blocks (or clusters) run in the
+``cudaMemsetAsync`` a ``memset``; ``float4`` and ``uchar4`` are aligned
+structs, and ``gridDim`` is the running launch's grid.  The blocks (or
+clusters) run in the
 grid's order, or, built with ``EMU_BLOCK_ORDER=1``, in reverse, or with
 ``EMU_BLOCK_ORDER=2`` the odd ones first, then the even: a kernel whose
-result must not depend on the order in which blocks run is built each way.  The sources'
+result must not depend on the order in which blocks run is built each way.
+The library's ``emu_run_only(u)`` makes later launches run unit ``u``
+alone (row by row of the grid, ``u = blockIdx.y * gridDim.x +
+blockIdx.x`` for single blocks), ``-1`` all of them again: a test can see
+which cells one block writes.  The sources'
 headers (``csrc/*.cuh``) are copied beside them.  Built with
 ``-ffp-contract=off``, as nvcc's ``-fmad=false`` keeps every multiply and
 add apart.  The grid's z axis is not emulated
@@ -62,8 +68,15 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct uint3 { unsigned x, y, z; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(4) uchar4 { unsigned char x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline uchar4 make_uchar4(unsigned char x, unsigned char y, unsigned char z,
+                          unsigned char w) { return {x, y, z, w}; }
 // the running fiber's indices, set by the scheduler at every switch
 inline uint3 threadIdx, blockIdx;
+// the running launch's grid, set by emu_launch
+inline dim3 gridDim;
 #if defined(__x86_64__)
 // a switch between fibers that saves the callee-saved registers and no
 // signal mask: swapcontext's system call would take most of the time of a
@@ -272,6 +285,7 @@ struct cluster_group {
 inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
@@ -291,6 +305,11 @@ inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 #ifndef EMU_BLOCK_ORDER
 #define EMU_BLOCK_ORDER 0
 #endif
+// the one unit (block, or cluster) that launches run, -1 for all
+inline int emu_only_unit = -1;
+extern "C" __attribute__((visibility("default"))) void emu_run_only(int u) {
+  emu_only_unit = u;
+}
 // the k-th of n units (rows of blocks, or clusters) to run: in the grid's
 // order (0), reversed (1), or the odd units first, then the even (2)
 inline unsigned emu_order(unsigned k, unsigned n) {
@@ -304,10 +323,12 @@ void emu_launch(F f, dim3 grid, dim3 block, size_t smem, const A& a,
                 unsigned cluster = 1) {
   emu::Run r;
   emu::run = &r;
+  gridDim = grid;
   r.body = [&] { f(a); };
   const unsigned per_row = grid.x / cluster, units = grid.y * per_row;
   for (unsigned k = 0; k < units; ++k) {
     const unsigned u = emu_order(k, units);
+    if (emu_only_unit >= 0 && u != (unsigned)emu_only_unit) continue;
     emu::blocks_together(u % per_row * cluster, cluster, u / per_row,
                          block.x, smem);
   }
@@ -357,8 +378,10 @@ def build_for_cpu(source: Path, out_dir: Path, launches: int,
     # later library of the same names (another kernel's build, K3's
     # thread_local ones in tests/test_torch_reg_kernel_emulated.py) would
     # use this one's variables
+    # -fno-strict-aliasing: a kernel reads a plane of bytes or floats as
+    # uchar4 or float4, which nvcc allows
     subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-fno-gnu-unique", "-shared", "-w",
+                    "-fno-gnu-unique", "-fno-strict-aliasing", "-shared", "-w",
                     *(f"-D{d}" for d in defines), "-o", str(lib), str(cpp)],
                    check=True)
     return lib

@@ -5,7 +5,9 @@ refresh_depth_pyramid``; ``ops/depth_refresh_kernel.py``,
 
 Inputs: numpy-seeded depth states at ``TEST_CONFIG``'s 96x128 for one
 video and for two (2, 96, 128), at 270x480 (whose levels drop a row at
-levels 2 and 3: 270, 135, 67, 33) and at a ragged 37x53; hypotheses
+levels 2 and 3: 270, 135, 67, 33), at a ragged 37x53, at 70x102 (a
+width the vector loads do not take; the last warps half outside), a
+batch of three at 70x100 and the smallest four-level state, 16x16; hypotheses
 valid or not at random, smoothed inverse depths around and below the
 -0.05 cut (and exactly at it, at 0 and at -0.0), variances of both signs,
 NaN in both planes.
@@ -22,7 +24,13 @@ On the CPU:
 - the CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``)
   equals the twin bit for bit in every plane and level (NaN equal to
   NaN), for one state, a batch, every level count 1-4, and each state of
-  a batch equal to itself alone.
+  a batch equal to itself alone; so it does with the grid's blocks run
+  in reverse and odd blocks first, built with the tiles and pixels a
+  thread that ``tools/time_k4.py`` times, and on planes that start 4 bytes past a
+  16-byte boundary (the scalar loads);
+- each block writes only the cells it owns: run one block at a time into
+  outputs filled with a sentinel, every cell is written by exactly one
+  block, with the twin's bits.
 
 On a card (``python -m pytest tests/test_torch_depth_refresh_kernel.py -m
 cuda --noconftest``): the kernel bit-equal to the twin there, one launch a
@@ -48,12 +56,18 @@ torch.set_num_threads(1)
 CFG = TEST_CONFIG
 CASES = {"one": (96, 128), "videos": (2, 96, 128), "full": (270, 480),
          "ragged": (37, 53)}
+# widths the vector loads take and do not, warps half outside, a batch of
+# three, and the smallest four-level state
+EDGE_CASES = {"edge": (70, 102), "batch3": (3, 70, 100), "small": (16, 16)}
+ALL_CASES = {**CASES, **EDGE_CASES}
 
 
 def states(case, nan=False):
     """A depth state of the case's shape from numpy."""
-    shape = CASES[case]
-    rng = np.random.default_rng(sorted(CASES).index(case) + 10 * nan)
+    shape = ALL_CASES[case]
+    seed = (sorted(CASES).index(case) if case in CASES
+            else 20 + sorted(EDGE_CASES).index(case))
+    rng = np.random.default_rng(seed + 10 * nan)
     valid = rng.uniform(size=shape) < 0.6
     ids = rng.uniform(-0.2, 2.0, size=shape)
     pick = rng.uniform(size=shape)
@@ -175,21 +189,35 @@ def test_source_and_names():
 
 # --- the CUDA source built for the CPU ---
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def _build(tmp_path_factory, name, defines=()):
     """The library built for the CPU, as a function of a state, a border
     and a level count."""
     lib = depth_refresh_kernel.bind(ctypes.CDLL(str(
         cuda_emulation.build_for_cpu(
-            depth_refresh_kernel.SOURCE,
-            tmp_path_factory.mktemp("depth_refresh_kernel_cpu"), 1))))
+            depth_refresh_kernel.SOURCE, tmp_path_factory.mktemp(name), 1,
+            defines))))
 
     def run(st, border, levels):
         valid, depths, vars_ = depth_refresh_kernel._launch(
             lib, st.valid, st.idepth_smoothed, st.var_smoothed, border,
             levels, 0)
         return st.replace(valid=valid), depths, vars_
+    run.lib = lib
     return run
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _build(tmp_path_factory, "depth_refresh_kernel_cpu")
+
+
+@pytest.fixture(scope="module", params=[1, 2],
+                ids=["reversed", "odd_then_even"])
+def emulated_in_order(request, tmp_path_factory):
+    """The library with the grid's blocks run in the given order."""
+    return _build(tmp_path_factory,
+                  f"depth_refresh_kernel_cpu{request.param}",
+                  (f"EMU_BLOCK_ORDER={request.param}",))
 
 
 def _plain(st, border, levels):
@@ -198,11 +226,91 @@ def _plain(st, border, levels):
 
 
 @pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", ALL_CASES)
 def test_emulated_matches_twin(emulated, case, nan):
     st = states(case, nan)
     assert_refresh(emulated(st, CFG.border, CFG.num_levels),
                    _plain(st, CFG.border, CFG.num_levels))
+
+
+@pytest.mark.parametrize("case", ALL_CASES)
+def test_emulated_block_orders(emulated_in_order, case):
+    st = states(case, nan=True)
+    assert_refresh(emulated_in_order(st, CFG.border, CFG.num_levels),
+                   _plain(st, CFG.border, CFG.num_levels))
+
+
+# the builds tools/time_k4.py times beside the source's
+BUILDS = ("ELLC_REF_TILE_H=8", "ELLC_REF_TILE_H=32",
+          "ELLC_REF_TILE_H=32,ELLC_REF_TILE_W=64")
+
+
+@pytest.mark.parametrize("defines", BUILDS, ids=["8x32", "32x32", "32x64"])
+def test_emulated_other_builds(tmp_path_factory, defines):
+    run = _build(tmp_path_factory, "depth_refresh_kernel_build",
+                 tuple(defines.split(",")))
+    for case in ("one", "ragged", "edge", "batch3", "small"):
+        st = states(case, nan=True)
+        assert_refresh(run(st, CFG.border, CFG.num_levels),
+                       _plain(st, CFG.border, CFG.num_levels))
+
+
+def _shifted(t):
+    """``t`` in a buffer whose data starts one element past the
+    allocation's, 4 bytes past a 16-byte boundary for float32."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_emulated_planes_off_the_vector_alignment(emulated):
+    st = states("batch3", nan=True)
+    moved = st.replace(**{n: _shifted(getattr(st, n)) for n in
+                          ("valid", "idepth_smoothed", "var_smoothed")})
+    assert moved.idepth_smoothed.data_ptr() % 16 != 0
+    assert_refresh(emulated(moved, CFG.border, CFG.num_levels),
+                   _plain(st, CFG.border, CFG.num_levels))
+
+
+SENTINEL = 0x7FBADBAD       # a signalling NaN: no arithmetic makes it
+
+
+def _sentinel_empty(shape, dtype, device):
+    if dtype == torch.bool:
+        return torch.full(shape, 0xAB, dtype=torch.uint8).view(torch.bool)
+    return torch.full(shape, SENTINEL, dtype=torch.int32).view(torch.float32)
+
+
+@pytest.mark.parametrize("case", ["batch3", "edge"])
+def test_emulated_each_block_writes_its_own_cells(emulated, monkeypatch,
+                                                  case):
+    """One block at a time into outputs filled with the sentinel: every
+    cell is written by exactly one block, with the twin's bits."""
+    monkeypatch.setattr(depth_refresh_kernel, "_empty", _sentinel_empty)
+    st = states(case, nan=True)
+    wst, wd, wv = _plain(st, CFG.border, CFG.num_levels)
+    want = [wst.valid] + wd + wv
+    writes = [torch.zeros(w.shape, dtype=torch.int32) for w in want]
+    H, W = st.valid.shape[-2:]
+    tile = [int(re.search(rf"#define ELLC_REF_TILE_{a} (\d+)",
+                          depth_refresh_kernel.SOURCE.read_text()).group(1))
+            for a in "HW"]
+    blocks = (st.valid[..., 0, 0].numel() * -(-H // tile[0])
+              * -(-W // tile[1]))
+    try:
+        for u in range(blocks):
+            emulated.lib.emu_run_only(u)
+            gst, gd, gv = emulated(st, CFG.border, CFG.num_levels)
+            for g, w, n in zip([gst.valid] + gd + gv, want, writes):
+                hit = (g.view(torch.uint8) != 0xAB if g.dtype == torch.bool
+                       else g.view(torch.int32) != SENTINEL)
+                assert same(g[hit], w[hit]), f"block {u}"
+                n += hit.to(torch.int32)
+    finally:
+        emulated.lib.emu_run_only(-1)
+    for i, n in enumerate(writes):
+        assert bool((n == 1).all()), f"plane {i} written once"
 
 
 @pytest.mark.parametrize("levels", [1, 2, 3])
@@ -233,7 +341,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", ALL_CASES)
 def test_cuda_matches_twin_and_repeats(cuda_device, case):
     st = states(case, nan=True)
     st = st.__class__(**{n: getattr(st, n).to(cuda_device)

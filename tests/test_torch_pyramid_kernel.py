@@ -5,8 +5,10 @@
 Inputs: numpy-seeded integer grey levels (decoded frames) at
 ``TEST_CONFIG``'s 96x128 for one video and for two (2, 96, 128), a ragged
 45x67 frame (floor-halved levels of odd sizes), a frame with a NaN and an
-inf, and a frame of fractional grey levels (where the blur's sums round,
-so their order shows).
+inf, a frame of fractional grey levels (where the blur's sums round, so
+their order shows), two 70x100 frames (each level's edge falls inside a
+block's tile, and the last row and column of tiles own no level-3 cell)
+and the smallest four-level frame, 16x16 (level 3 is 2x2).
 
 On the CPU:
 
@@ -23,11 +25,18 @@ On the CPU:
 - the CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``)
   equals the twin bit for bit in every level, gradient and the map (NaN
   equal to NaN), for one image and a batch, with and without gradients,
-  and the map from gradient planes (``max_abs_gradient``).
+  and the map from gradient planes (``max_abs_gradient``), in one launch
+  a ``build_levels`` call (two for five levels); so it does with the
+  grid's blocks run in reverse and odd blocks first, and built with the
+  other tiles that ``tools/time_k4.py`` times;
+- each block writes only the cells it owns: run one block at a time into
+  outputs filled with a sentinel, every cell is written by exactly one
+  block, with the twin's bits.
 
 On a card (``python -m pytest tests/test_torch_pyramid_kernel.py -m cuda
 --noconftest``): the kernel bit-equal to the twin there, one launch a
-level, and two calls bit-equal.
+``build_levels``, ``gradients`` or ``max_abs_gradient`` call, and two
+calls bit-equal.
 """
 
 import ctypes
@@ -46,11 +55,21 @@ torch.set_num_threads(1)
 LEVELS = 4
 CASES = {"one": (96, 128), "videos": (2, 96, 128), "ragged": (45, 67),
          "nan": (2, 45, 67), "fractional": (96, 128)}
+# each level's edge inside a tile, and the smallest four-level frame
+EDGE_CASES = {"edge": (2, 70, 100), "small": (16, 16)}
+ALL_CASES = {**CASES, **EDGE_CASES}
+# tiles and block sizes tools/time_k4.py times beside the source's
+TILES = ("ELLC_PYR_TILE_H=16,ELLC_PYR_TILE_W=16,ELLC_PYR_THREADS=256",
+         "ELLC_PYR_TILE_W=32,ELLC_PYR_THREADS=256",
+         "ELLC_PYR_TILE_H=64,ELLC_PYR_THREADS=1024",
+         "ELLC_PYR_TILE_W=64")
 
 
 def frames(case):
-    rng = np.random.default_rng(sorted(CASES).index(case))
-    img = 255 * rng.uniform(size=CASES[case])
+    seed = (sorted(CASES).index(case) if case in CASES
+            else 10 + sorted(EDGE_CASES).index(case))
+    rng = np.random.default_rng(seed)
+    img = 255 * rng.uniform(size=ALL_CASES[case])
     if case != "fractional":        # a blur of integers rounds rarely
         img = np.round(img)
     img = img.astype(np.float32)
@@ -146,6 +165,8 @@ def test_cpu_tensors_take_the_twin():
 def test_source_and_names():
     code = re.sub(r"//[^\n]*", "", pyramid_kernel.SOURCE.read_text())
     assert "atomic" not in code and code.count("__global__") == 1
+    assert re.search(r"kMaxLevels = (\d+);", code).group(1) == str(
+        pyramid_kernel.MAX_LEVELS)
     assert pyramid_kernel.wrapper_of(
         "_ZN12_GLOBAL__N_113pyramid_levelE11PyramidArgs") == "pyramid_level"
     assert pyramid_kernel.wrapper_of(
@@ -156,27 +177,114 @@ def test_source_and_names():
 
 # --- the CUDA source built for the CPU ---
 
+def _build(tmp_path_factory, name, defines=()):
+    return pyramid_kernel.bind(ctypes.CDLL(str(cuda_emulation.build_for_cpu(
+        pyramid_kernel.SOURCE, tmp_path_factory.mktemp(name), 2, defines))))
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The library built for the CPU."""
-    return pyramid_kernel.bind(ctypes.CDLL(str(cuda_emulation.build_for_cpu(
-        pyramid_kernel.SOURCE, tmp_path_factory.mktemp("pyramid_kernel_cpu"),
-        2))))
+    return _build(tmp_path_factory, "pyramid_kernel_cpu")
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_emulated_matches_twin(emulated, case):
-    img = frames(case)
-    imgs, gx, gy, mg, n = pyramid_kernel._levels(emulated, img, LEVELS, True,
+@pytest.fixture(scope="module", params=[1, 2],
+                ids=["reversed", "odd_then_even"])
+def emulated_in_order(request, tmp_path_factory):
+    """The library built for the CPU with the grid's blocks run in the
+    given order."""
+    return _build(tmp_path_factory, f"pyramid_kernel_cpu{request.param}",
+                  (f"EMU_BLOCK_ORDER={request.param}",))
+
+
+def assert_matches_twin(lib, img, levels=LEVELS, launches=1):
+    """``_levels`` of ``lib`` bit-equal to the twin, with gradients and the
+    map and without either, in ``launches`` launches a call (none for one
+    level without either: nothing to write)."""
+    imgs, gx, gy, mg, n = pyramid_kernel._levels(lib, img, levels, True,
                                                  True, 0)
-    assert n == LEVELS
+    assert n == launches
     assert_levels(pyramid.Levels(tuple(imgs), tuple(gx), tuple(gy), mg),
-                  pyramid.plain_build_levels(img, LEVELS, max_grad=True))
-    imgs, gx, gy, mg, n = pyramid_kernel._levels(emulated, img, LEVELS,
-                                                 False, False, 0)
-    assert n == LEVELS - 1 and gx == [] and mg is None
-    for a, b in zip(imgs, pyramid.plain_build_pyramid(img, LEVELS)):
+                  pyramid.plain_build_levels(img, levels, max_grad=True))
+    imgs, gx, gy, mg, n = pyramid_kernel._levels(lib, img, levels, False,
+                                                 False, 0)
+    assert n == (0 if levels == 1 else launches) and gx == [] and mg is None
+    for a, b in zip(imgs, pyramid.plain_build_pyramid(img, levels)):
         assert same(a, b)
+
+
+@pytest.mark.parametrize("case", ALL_CASES)
+def test_emulated_matches_twin(emulated, case):
+    assert_matches_twin(emulated, frames(case))
+
+
+@pytest.mark.parametrize("case", ALL_CASES)
+def test_emulated_block_orders(emulated_in_order, case):
+    assert_matches_twin(emulated_in_order, frames(case))
+
+
+@pytest.mark.parametrize("tile", TILES,
+                         ids=["16x16", "32x32", "64x48", "32x64"])
+def test_emulated_other_tiles(tmp_path_factory, tile):
+    lib = _build(tmp_path_factory, "pyramid_kernel_tile",
+                 tuple(tile.split(",")))
+    for case in ("nan", "edge", "small", "fractional"):
+        assert_matches_twin(lib, frames(case))
+    gx, gy = pyramid.plain_gradients(frames("edge"))
+    assert same(pyramid_kernel._maxgrad(lib, gx, gy, 0),
+                pyramid.plain_max_abs_gradient(gx, gy))
+
+
+@pytest.mark.parametrize("levels", [1, 2, 5])
+def test_emulated_other_level_counts(emulated, levels):
+    # five levels: a second launch from level 3, which leaves level 3's
+    # gradients to the first
+    assert_matches_twin(emulated, frames("videos"), levels,
+                        2 if levels > pyramid_kernel.MAX_LEVELS else 1)
+    with pytest.raises(ValueError):
+        pyramid_kernel._levels(emulated, frames("small"), 5, True, False, 0)
+
+
+SENTINEL = 0x7FBADBAD       # a signalling NaN: no arithmetic makes it
+
+
+def test_emulated_each_block_writes_its_own_cells(emulated, monkeypatch):
+    """One block at a time into outputs filled with the sentinel: every
+    cell is written by exactly one block, with the twin's bits."""
+    monkeypatch.setattr(pyramid_kernel, "_empty", lambda shape, device: (
+        torch.full(shape, SENTINEL, dtype=torch.int32).view(torch.float32)))
+    img = frames("edge")
+    want = pyramid.plain_build_levels(img, LEVELS, max_grad=True)
+    gx0, gy0 = want.gradx[0], want.grady[0]
+    outs = {"images": want.images[1:], "gradx": want.gradx,
+            "grady": want.grady, "maxgrad": (want.maxgrad,),
+            "map_alone": (want.maxgrad,)}
+    writes = {k: [torch.zeros(w.shape, dtype=torch.int32) for w in ws]
+              for k, ws in outs.items()}
+    tile = [int(re.search(rf"#define ELLC_PYR_TILE_{a} (\d+)",
+                          pyramid_kernel.SOURCE.read_text()).group(1))
+            for a in "HW"]
+    blocks = img.shape[0] * -(-70 // tile[0]) * -(-100 // tile[1])
+    run_only = emulated.emu_run_only
+    try:
+        for u in range(blocks):
+            run_only(u)
+            imgs, gx, gy, mg, _ = pyramid_kernel._levels(emulated, img, LEVELS,
+                                                         True, True, 0)
+            got = {"images": imgs[1:], "gradx": gx, "grady": gy,
+                   "maxgrad": (mg,),
+                   "map_alone": (pyramid_kernel._maxgrad(emulated, gx0, gy0,
+                                                         0),)}
+            for k, ws in outs.items():
+                for g, w, n in zip(got[k], ws, writes[k]):
+                    hit = g.view(torch.int32) != SENTINEL
+                    assert same(g[hit], w[hit]), f"block {u}: {k}"
+                    n += hit.to(torch.int32)
+    finally:
+        run_only(-1)
+    for k, ns in writes.items():
+        for level, n in enumerate(ns):
+            assert bool((n == 1).all()), f"{k}[{level}] written once"
 
 
 @pytest.mark.parametrize("case", ["videos", "nan"])
@@ -208,7 +316,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", ALL_CASES)
 def test_cuda_matches_twin_and_repeats(cuda_device, case):
     img = frames(case).to(cuda_device)
     pyramid_kernel.reset_launches()
@@ -217,7 +325,9 @@ def test_cuda_matches_twin_and_repeats(cuda_device, case):
     gx, gy = pyramid.gradients(img)
     mg = pyramid.max_abs_gradient(gx, gy)
     torch.cuda.synchronize()
-    assert pyramid_kernel.launches == {"pyramid_level": 2 * LEVELS + 2}
+    # one launch a build_levels call of up to four levels, a gradients
+    # call and a max_abs_gradient call
+    assert pyramid_kernel.launches == {"pyramid_level": 4}
     assert_levels(first, pyramid.plain_build_levels(img, LEVELS,
                                                     max_grad=True))
     assert_levels(second, first)
