@@ -9,10 +9,11 @@ Phases, each announced on its own line:
    limit from nvidia-smi;
 2. build: compiles the K3 kernel (csrc/reg_kernel.cu), the two K1
    kernels (csrc/gn_kernel.cu: gn_level_cluster and gn_step), the K2
-   kernel (csrc/stereo_kernel.cu), propagate's two merge kernels
-   (csrc/propagate_kernel.cu: propagate_link and propagate_merge) and
+   kernel (csrc/stereo_kernel.cu), propagate's two kernels
+   (csrc/propagate_kernel.cu: propagate_candidates and propagate_merge),
    K4's three (csrc/se3_kernel.cu, csrc/pyramid_kernel.cu,
-   csrc/depth_refresh_kernel.cu) from this checkout, one nvcc each,
+   csrc/depth_refresh_kernel.cu) and phase 3d's reference merge kernel
+   (tools/reference_csrc) from this checkout, one nvcc each,
    started together, and prints each
    kernel's registers, stack and shared memory and its static SASS
    instruction count (cuobjdump);
@@ -73,20 +74,24 @@ Phases, each announced on its own line:
    are printed, and the real frames must reach every branch.  Then K2's
    and the plain version's time per call from CUDA-graph replays at V = 1
    and 8 on the update path, in turns, beside K2's bound;
-3d. propagate's merge kernels against their plain twin
-   (ops/propagate_kernel.py::plain_merge, whose sums add each cell's
+3d. propagate's kernels (the reprojection, the gates and the merge in a
+   memset and two launches, ops/propagate_kernel.py) on phase 3's real
+   keyframe (the pipeline's state after frame 8, propagated into frame 9
+   at its tracked pose), bit for bit in every plane (NaN equal to NaN)
+   against their plain twin on the card (depth/propagate.py::candidates,
+   then ops/propagate_kernel.py::plain_merge, whose sums add each cell's
    compatible candidates in ascending source index without a float
-   atomic) on the card, bit for bit in every plane (NaN equal to NaN),
-   on the candidates that depth/propagate.py::candidates makes of phase
-   3's real keyframe (the pipeline's state after frame 8, propagated into
-   frame 9 at its tracked pose): one state, 8 videos (video b rolled by
-   (b, 2b) pixels, its pose moved by 2e-4 b) and the 20 trials of
-   recovery's window cap (rolled by (7b, 23b)), and one state zoomed out
-   (the pose moved back by MERGE_ZOOM); a second call bit-equal to the
-   first.  Then the time per call of the kernels and of the merge as the
-   port ran it before them (float index_add_, atomic order) from CUDA-graph
-   replays, in turns, and of one eager call of the twin (it reads the
-   largest fan-in back to the host), beside the kernels' bound by bytes;
+   atomic) and against the path they replace (ATen candidates(), then
+   the merge kernel of tools/reference_csrc/propagate_merge_lists.cu):
+   one state, 8 videos with a new keyframe each (video b rolled by (b, 2b)
+   pixels, its pose moved by 2e-4 b), the 20 trials of recovery's window
+   cap with one new keyframe (rolled by (7b, 23b)), and one state zoomed
+   out (the pose moved back by PROPAGATE_ZOOM: lists longer than the
+   kChunk entries a walk of the merge selects); a second call bit-equal
+   to the first.
+   Then the time per call of the kernels and of the replaced path from
+   CUDA-graph replays, in turns, and of one eager call of the twin (it
+   reads the largest fan-in back to the host), beside the kernels' bound;
 3e. K4 against its plain twins on the card at one video (phase 3's
    pipeline state, pose and keyframe world pose, and frame 9), eight
    videos and a batch of 20 (rolled copies, poses moved by 2e-4 b): the
@@ -210,13 +215,13 @@ Phases, each announced on its own line:
    step bit-equal on every state field and output (NaN equal to NaN), the
    K3 launches counted from the graph's nodes equal to the eager step's;
    the keyframe step, two graph replays and two eager runs, all four
-   bit-equal, with one launch of each merge kernel; the same for two
+   bit-equal, with one launch of each propagate kernel; the same for two
    batched videos and for replay steps with an initial rotation.  Prints
    each captured graph's kernel nodes (from
    raw_cuda_graph() and libcuda's cuGraphGetNodes) beside the eager
-   profile's 24,475 launches a frame before K1, its K3, K1, K2 and merge
-   nodes (a keyframe graph one of each merge kernel, a track_refine
-   graph none)
+   profile's 24,475 launches a frame before K1, its K3, K1, K2 and
+   propagate nodes (a keyframe graph one of each propagate kernel, a
+   track_refine graph none)
    (found by name) and its warm-up's launches, its capture and
    instantiate seconds and its pool's bytes, and GN frames/s graphed
    beside eager over the same 16 frames, in turns; then the device-idle
@@ -225,19 +230,20 @@ Phases, each announced on its own line:
 
 Phases 4-13 run graphed: on the card every frame step of run_sequence,
 process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3, K1, K2, merge and K4 kernel nodes
+captured graph, and a replay counts the K3, K1, K2, propagate and K4 kernel nodes
 of its graph (checked at capture against the wrapper calls the capture
 made);
 the eager warm-up before each capture counts apart, under
 ``warmup_launches_by_path``.  Each driven path (phases 4, 6, 7, 8, 9
-and 10) sets the launch counts of K3, K1, K2, the merge and K4 to 0
+and 10) sets the launch counts of K3, K1, K2, propagate and K4 to 0
 just before it and reads them just after, and holds them to a hand count
 of its schedule (K4 on the LC paths: the launches of the graph
 replays, the eager calls printed); phase 14 holds each replayed step to
 the eager step's launches, one of K2 a track_refine step, one of each
-merge kernel a keyframe step, K4's per step (one pyramid node), and a
+propagate kernel a keyframe step, K4's per step (one pyramid node), a
 track_refine graph without the loop window or a replay to
-TRACK_GRAPH_NODES (25) kernel nodes.  The
+TRACK_GRAPH_NODES (25) kernel nodes, and a one-video keyframe graph
+without them to KEYFRAME_GRAPH_NODES.  The
 last lines are one JSON object
 describing each kernel (``launches`` from phase 4, and every path's count
 under ``launches_by_path``; its bound is
@@ -333,35 +339,139 @@ SYNTHETIC_ATE_SLACK = 2.2e-3
 # pixel-sharded H at 2e-4) and each g_i within 1e-4 of sqrt(H_ii E), E
 # the energy; the sharded Sim(3) nodes within 1e-5
 SHARDED_GN_TOL, SHARDED_BA_TOL = 1e-4, 1e-5
-# Propagate's merge (ops/propagate_kernel.py): one call, one launch of
-# each of its two kernels, a keyframe step and a batched recovery trial
-# (one for all candidates).  Calls per path, from the schedules counted for
-# K3 above (each keyframe step one regularize, and the init one): phase 4
-# 16 keyframe steps; phase 6 10; phase 7 10 + 10 replayed + 4 x 4 = 36;
-# phase 8 6 keyframe steps and 2 trials; phase 9 4, one video's count
-# whatever V; phase 10 8.
-MERGE_CALLS = {"gn_run_sequence": 16, "lc_bootstrap": 10, "lc_mode": 36,
-               "recovery": 8, "batched_videos": 4, "synthetic": 8}
+# Propagate (ops/propagate_kernel.py): one call, a memset and one launch
+# of each of its two kernels, propagate_candidates and propagate_merge, a
+# keyframe step and a batched recovery trial (one for all candidates).
+# Calls per path, from the schedules counted for K3 above (each keyframe
+# step one regularize, and the init one): phase 4 16 keyframe steps;
+# phase 6 10; phase 7 10 + 10 replayed + 4 x 4 = 36; phase 8 6 keyframe
+# steps and 2 trials; phase 9 4, one video's count whatever V; phase 10 8.
+PROPAGATE_CALLS = {"gn_run_sequence": 16, "lc_bootstrap": 10, "lc_mode": 36,
+                   "recovery": 8, "batched_videos": 4, "synthetic": 8}
 # Phase 3d: the real keyframe's pose with the camera moved back by
-# MERGE_ZOOM (a zoom-out, with the photometric gate opened: dozens of
-# sources a cell, more than the kernel selects in one walk, kChunk), and
-# the bytes the merge must move, each read once or written once: every
-# source's candidate flag and every cell's seven planes, and only a
-# candidate's target (int64), inverse depth, variance and validity (the
-# kernels read nothing else of a source that is not a candidate)
-MERGE_ZOOM, MERGE_BYTES_CELL, MERGE_BYTES_CAND = 3.0, 1 + 25, 8 + 4 + 4 + 4
+# PROPAGATE_ZOOM (a zoom-out, with the photometric gate opened: dozens of
+# sources a cell, more than a walk of the merge selects, kChunk); the
+# bytes a call must move, each read once or written once: every source's
+# valid flag (1 B) and every cell's seven output planes (25 B); the 4-B
+# planes only in the 32-B sectors that the sources needing them touch
+# (propagate_work): the new keyframe's max gradient where a source is
+# valid, the smoothed inverse depth where it passes the gradient gate, the
+# old keyframe image where its projection lands inside the image, the new
+# keyframe image at those projections' four bilinear taps, and the
+# inverse depth and validity where it is a candidate (a new keyframe's
+# planes are one for recovery's trials, one a state for the videos)
+PROPAGATE_ZOOM = 3.0
+PROPAGATE_BYTES_VALID, PROPAGATE_BYTES_CELL = 1, 25
 # its float32 operations, counted by hand from csrc/propagate_kernel.cu:
-# a candidate's winner test (2) and compatibility (5), a compatible
-# candidate's reciprocal, product and four sums with its clamp test (7),
-# a cell's finish (4)
-MERGE_OPS_CAND, MERGE_OPS_COMPAT, MERGE_OPS_CELL = 7, 7, 4
+# every source's gradient gate (1); a valid source past it, the
+# reprojection and the image gates (37); a source inside the image, the
+# bilinear sample and the photometric gate (37); a candidate, the variance
+# inflation and its target (7) and the merge's winner test and
+# compatibility (7); a compatible candidate's reciprocal, product and
+# four sums with its clamp test (7); a cell's finish (4)
+PROPAGATE_OPS = dict(src=1, reprojected=37, in_image=37, candidate=14,
+                     compatible=7, cell=4)
+# Phase 14: a keyframe graph's kernel nodes, one video, the loop window off
+# and not a replay (276 before the propagate kernels, which replaced
+# candidates()' 226 ATen kernels and the merge's two): K1 13 (its align),
+# K3 3 (do_regularization twice, regularize once), propagate 2, K4 4 (the
+# compose, the pyramid, two refreshes; no K2), and 28 ATen kernels (the
+# tracking's seven, as in a track_refine graph, and 21 of make_idepth_one,
+# make_keyframe and the new state)
+KEYFRAME_GRAPH_NODES = 13 + 3 + 2 + 4 + 28
 
 
-def merge_expected(path):
-    """The merge kernels' launches on a driven path, by the hand count
-    above."""
-    return {"propagate_link": MERGE_CALLS[path],
-            "propagate_merge": MERGE_CALLS[path]}
+def propagate_expected(path):
+    """The propagate kernels' launches on a driven path, by the hand
+    count above."""
+    return {"propagate_candidates": PROPAGATE_CALLS[path],
+            "propagate_merge": PROPAGATE_CALLS[path]}
+
+
+def propagate_case(st, img, maxgrad, pose, spec):
+    """Phase 3d's propagate() arguments (but the config) of one size: the
+    pipeline state ``st`` (its depth and keyframe image) propagated into
+    ``img`` (max gradient ``maxgrad``) at ``pose``; ``spec`` None for one
+    state, or (B, dy, dx, dpose, per_state): copy b rolled by (dy b, dx b)
+    pixels, its pose moved by dpose b, the new keyframe shared or (with
+    per_state) rolled as well."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
+        FIELDS, DepthMapState)
+    if spec is None:
+        return st.depth, st.kf.images[0], img, maxgrad, pose
+    B, dy, dx, dpose, per_state = spec
+
+    def stack(t):
+        return torch.stack([torch.roll(t, (dy * b, dx * b), (-2, -1))
+                            for b in range(B)])
+    return (DepthMapState(**{n: stack(getattr(st.depth, n))
+                             for n in FIELDS}),
+            stack(st.kf.images[0]), stack(img) if per_state else img,
+            stack(maxgrad) if per_state else maxgrad,
+            torch.stack([pose + dpose * b for b in range(B)]))
+
+
+def propagate_work(args, cfg):
+    """(compulsory bytes, float32 operations) of one propagate call on
+    ``args``, by the hand counts above and this data's gates (the twin's
+    expressions)."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
+    from egomotion_with_local_loop_closures_tpu_torch.geom import camera, lie
+    from egomotion_with_local_loop_closures_tpu_torch.ops import (
+        propagate_kernel)
+    st, old, new, maxgrad, pose = args
+    n, H, W = st.idepth.numel(), *st.idepth.shape[-2:]
+    tgt, cand, idepth, var, _ = propagate.candidates(*args, cfg)
+    compat = propagate_kernel._compat(tgt, cand, idepth, var, cfg, n)
+    reproj = st.valid & (maxgrad >= cfg.min_abs_grad_decrease)
+    # the image gates of candidates(), on the reprojected sources
+    T = lie.exp_se3(pose)[..., :3, :, None, None]
+    x, y = camera.pixel_grid(H, W, device=old.device)
+    ids = torch.where(st.idepth_smoothed.abs() > 1e-12,
+                      st.idepth_smoothed, 1e-12)
+    rx = (x - cfg.cx) * camera.division_reciprocal32(cfg.fx)
+    ry = (y - cfg.cy) * camera.division_reciprocal32(cfg.fy)
+    p = [(T[..., i, 0, :, :] * rx + T[..., i, 1, :, :] * ry
+          + T[..., i, 2, :, :]) / ids + T[..., i, 3, :, :] for i in range(3)]
+    nid = 1.0 / torch.where(p[2].abs() > 1e-12, p[2], 1e-12)
+    u = p[0] * nid * cfg.fx + cfg.cx
+    v = p[1] * nid * cfg.fy + cfg.cy
+    in_image = reproj & (u > 2.1) & (v > 2.1) & (u < W - 3.1) & (v < H - 3.1)
+    counts = dict(src=n, reprojected=int(reproj.sum()),
+                  in_image=int(in_image.sum()), candidate=int(cand.sum()),
+                  compatible=int(compat.sum()), cell=n)
+    # the new keyframe's planes: one for all states, or one a state; the
+    # image's bilinear taps of the projections inside the image
+    shared = new.dim() < old.dim()
+    first = torch.zeros((), dtype=torch.long, device=old.device) if shared \
+        else (torch.arange(n // (H * W), device=old.device)
+              .reshape(old.shape[:-2] + (1, 1)) * (H * W))
+    sel = in_image.reshape(-1)
+    u, v, first = (t.expand(in_image.shape).reshape(-1)[sel]
+                   for t in (u, v, first))
+    taps = torch.zeros(new.numel(), dtype=torch.bool, device=old.device)
+    for tx in (u.floor(), u.ceil()):
+        for ty in (v.floor(), v.ceil()):
+            taps[first + ty.long() * W + tx.long()] = True
+    valid = st.valid.reshape(-1, H, W).any(0) if shared else st.valid
+    nbytes = ((PROPAGATE_BYTES_VALID + PROPAGATE_BYTES_CELL) * n
+              + sum(sector_bytes(m, 4) for m in (
+                  valid, reproj, in_image, taps, cand, cand)))
+    return nbytes, sum(PROPAGATE_OPS[k] * c for k, c in counts.items())
+
+
+def sector_bytes(mask, itemsize):
+    """The bytes of the 32-B sectors of a contiguous plane of
+    ``itemsize``-byte elements in which ``mask`` (the plane's shape) holds
+    for some element."""
+    import torch
+    per = 32 // itemsize
+    flat = mask.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % per)])
+    return 32 * int(flat.reshape(-1, per).any(1).sum())
+
 
 # K1 (ops/gn_kernel.py) in one align at 480x270: levels 2 and 3 (67x120
 # and 33x60: 8,040 and 1,980 pixels, each at most
@@ -652,13 +762,13 @@ def compare(ref, got, fields):
 
 def kernel_label(mangled):
     """reg_kernel<kFill, kOccl>, gn_level_cluster, gn_step,
-    stereo_observe, propagate_link, propagate_merge, se3_compose,
+    stereo_observe, propagate_candidates, propagate_merge, se3_compose,
     pyramid_level or depth_refresh from a mangled kernel name."""
     m = re.search(r"reg_kernelILb(\d)ELb(\d)E", mangled)
     if m:
         return f"reg_kernel<fill={m.group(1)}, occl={m.group(2)}>"
     m = re.search(r"\d+(gn_level_cluster|gn_step|stereo_observe|"
-                  r"propagate_link|propagate_merge|se3_compose|"
+                  r"propagate_candidates|propagate_merge|se3_compose|"
                   r"pyramid_level|depth_refresh)E", mangled)
     return m.group(1) if m else mangled
 
@@ -1314,66 +1424,93 @@ def k2_times(args, cfg, branches, gpu, label):
     return k_ms, p_ms, bound, by
 
 
-def merge_phase(cases, cfg, gpu):
-    """Phase 3d: the merge kernels against their plain twin on ``cases``,
-    each (label, candidates()' outputs, state shape, timed): every plane
-    bit-equal to the twin, a second call bit-equal to the first; prints
-    each case's candidates, compatible candidates and largest fan-in, and
-    how many cells the merge before the kernels (float index_add_)
-    differs from them in.  Returns the largest |float difference| (0),
-    for each timed case (kernel ms, index_add_ ms, twin ms, bound ms,
-    bound by), and each case's largest fan-in (by its label up to " (")."""
+def division_check(grids, dev):
+    """Phase 3d: on the card, ATen's division of a float32 tensor by a
+    Python scalar, ``(x - cx) / fx``, equals ``(x - cx) *
+    geom/camera.py::division_reciprocal32(fx)`` bit for bit over every
+    pixel of each grid in ``grids`` ((rows, cols, fx, fy, cx, cy)): the
+    rounding that propagate's twin and kernels take on every device is
+    the one that ATen's candidates() took on the card."""
     import torch
+    from egomotion_with_local_loop_closures_tpu_torch.geom import camera
+    for H, W, fx, fy, cx, cy in grids:
+        x, y = camera.pixel_grid(H, W, device=dev)
+        for g, c, f in ((x, cx, fx), (y, cy, fy)):
+            check(torch.equal((g - c) / f,
+                              (g - c) * camera.division_reciprocal32(f)),
+                  f"ATen's (x - {c}) / {f} on the card equals the product "
+                  f"with division_reciprocal32({f}) over the {H}x{W} grid")
+        print(f"{H}x{W}, fx {fx} fy {fy} cx {cx} cy {cy}: ATen's division by "
+              f"the focal length on the card bit-equal to the product with "
+              f"division_reciprocal32 at every pixel")
+
+
+def propagate_phase(cases, gpu):
+    """Phase 3d: the propagate kernels on ``cases``, each (label,
+    propagate()'s arguments but the config, the config, timed), against
+    their plain twin on the card (depth/propagate.py::candidates, then
+    ops/propagate_kernel.py::plain_merge) and against the path they
+    replace (ATen candidates(), then the merge kernel of
+    tools/reference_csrc/propagate_merge_lists.cu): every plane bit-equal
+    to both, a second call bit-equal to the first; prints each case's
+    candidates, compatible candidates and longest list.  For each timed
+    case, the device time per call of the kernels and of the replaced path
+    from CUDA-graph replays, in turns, and one eager call of the twin (it
+    reads the largest fan-in back to the host), beside the kernels' bound.
+    Returns the largest |float difference| (0), per timed case (kernel ms,
+    replaced ms, twin ms, bound ms, bound by), and each case's longest
+    list (by its label up to " (")."""
+    import torch
+    from egomotion_with_local_loop_closures_tpu_torch.depth import propagate
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
         FIELDS)
     from egomotion_with_local_loop_closures_tpu_torch.ops import (
         propagate_kernel as pk)
     from egomotion_with_local_loop_closures_tpu_torch.utils.card_timing \
-        import PEAK_BYTES_S, PEAK_F32_S, device_ms
-    worst, timed, fans = 0.0, {}, {}
-    for label, args, shape, is_timed in cases:
-        got = pk.merge(*args, shape, cfg)
-        again = pk.merge(*args, shape, cfg)
-        want = pk.plain_merge(*args, shape, cfg)
-        old = index_add_merge(pk, *args, shape, cfg)
+        import bound_ms, device_ms
+    rk = load_tool("reference_kernels")
+    lib = rk.load_merge_lists()
+    worst, timed, lists = 0.0, {}, {}
+    for label, args, c, is_timed in cases:
+        shape = tuple(args[0].idepth.shape)
+        got = propagate.propagate(*args, c)
+        again = propagate.propagate(*args, c)
+        cands = propagate.candidates(*args, c)
+        want = pk.plain_merge(*cands, shape, c)
+        before = rk.aten_propagate(lib, *args, c)
         torch.cuda.synchronize()
         worst = max(worst, compare(want, got, FIELDS))
+        compare(before, got, FIELDS)
         compare(got, again, FIELDS)
-        tgt, cand = args[0], args[1]
-        compat = pk._compat(tgt, cand, args[2], args[3], cfg, tgt.numel())
+        tgt, cand, idepth, var, _ = cands
+        compat = pk._compat(tgt, cand, idepth, var, c, tgt.numel())
         n_cand, n_compat = int(cand.sum()), int(compat.sum())
-        fan = int(torch.bincount(tgt[compat]).max()) if n_compat else 0
-        fans[label.split(" (")[0]] = fan
-        moved = sum(int((~same_elements(getattr(old, f), getattr(want, f)))
-                        .sum()) for f in FIELDS)
-        print(f"merge {label}: {tgt.numel()} cells, {n_cand} candidates, "
-              f"{n_compat} compatible, largest fan-in {fan}; kernels "
-              f"bit-equal to the twin in every plane and a second call "
-              f"bit-equal to the first; the index_add_ merge differs from "
-              f"the twin in {moved} plane elements")
+        longest = int(torch.bincount(tgt[cand]).max()) if n_cand else 0
+        lists[label.split(" (")[0]] = longest
+        print(f"propagate {label}: {tgt.numel()} cells, {n_cand} "
+              f"candidates, {n_compat} compatible, longest list {longest}; "
+              f"the kernels bit-equal in every plane to the twin, to ATen "
+              f"candidates() with the merge kernel they replace, and to a "
+              f"second call")
         if not is_timed:
             continue
-        kern = lambda: pk.merge(*args, shape, cfg)  # noqa: E731
-        atomic = lambda: index_add_merge(pk, *args, shape, cfg)  # noqa: E731
+        kern = lambda: propagate.propagate(*args, c)  # noqa: E731
+        old = lambda: rk.aten_propagate(lib, *args, c)  # noqa: E731
         ts = [device_ms(f, reps)[0] for f, reps in
-              ((atomic, 50), (kern, 200), (kern, 200), (atomic, 50))]
-        k_ms, a_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
-        p_ms = call_ms(lambda: pk.plain_merge(*args, shape, cfg), reps=10)
-        nbytes = MERGE_BYTES_CELL * tgt.numel() + MERGE_BYTES_CAND * n_cand
-        ops = (MERGE_OPS_CAND * n_cand + MERGE_OPS_COMPAT * n_compat
-               + MERGE_OPS_CELL * tgt.numel())
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-        bound = 1e3 * max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"merge {label}: device time per call (memset and two "
-              f"launches) {k_ms:.5f} ms, the index_add_ merge {a_ms:.5f} ms "
-              f"(turns {' '.join(f'{t:.5f}' for t in ts)}); the twin, one "
-              f"eager call with its host read, {p_ms:.4f} ms; bound "
-              f"{bound:.6f} ms by {by} ({nbytes} B, {ops} float32 ops: "
-              f"{1e6 * t_bytes:.3f} / {1e6 * t_ops:.3f} us), "
-              f"{100 * bound / k_ms:.1f} % of it reached; on {gpu}")
-        timed[label] = (k_ms, a_ms, p_ms, bound, by)
-    return worst, timed, fans
+              ((old, 50), (kern, 200), (kern, 200), (old, 50))]
+        k_ms, o_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+        p_ms = call_ms(lambda: pk.plain_merge(
+            *propagate.candidates(*args, c), shape, c), reps=10)
+        nbytes, ops = propagate_work(args, c)
+        bound, by = bound_ms(nbytes, ops)
+        print(f"propagate {label}: device time per call (a memset and two "
+              f"launches) {k_ms:.5f} ms, ATen candidates() with the merge "
+              f"kernel {o_ms:.5f} ms (turns {' '.join(f'{t:.5f}' for t in ts)}"
+              f"); the twin, one eager call with its host read, {p_ms:.4f} "
+              f"ms; bound {bound:.6f} ms by {by} ({nbytes} B, {ops} float32 "
+              f"ops), {100 * bound / k_ms:.1f} % of it reached; on {gpu}")
+        timed[label] = (k_ms, o_ms, p_ms, bound, by)
+    return worst, timed, lists
 
 
 def k4_phase(st, img, cfg, gpu):
@@ -1512,19 +1649,6 @@ def k4_phase(st, img, cfg, gpu):
     return worst, timed
 
 
-def index_add_merge(pk, tgt, cand, idepth, var, validity, shape, cfg):
-    """The merge as the port ran it before the kernels, with float
-    ``index_add_``: on the card its sums come in atomic order.  Phase 3d
-    times the kernels beside it and counts the plane elements in which it
-    parts from the twin; ``pk`` is ``ops/propagate_kernel.py``."""
-    import torch
-    n = tgt.numel()
-    compat = pk._compat(tgt, cand, idepth, var, cfg, n)
-    sums = [torch.zeros((n,), device=tgt.device).index_add_(0, tgt, t)
-            for t in pk._terms(compat, idepth, var, validity)]
-    return pk._finish(sums, shape, cfg)
-
-
 def same_elements(a, b):
     """Elementwise bit-equality, NaN equal to NaN."""
     return (a == b) | (a != a) & (b != b)
@@ -1587,7 +1711,7 @@ def main() -> int:
 
     import egomotion_with_local_loop_closures_tpu_torch as port
     from egomotion_with_local_loop_closures_tpu_torch.config import (
-        ELLCConfig, PARITY_OVERRIDES)
+        PARITY_OVERRIDES, TEST_CONFIG, ELLCConfig)
     from egomotion_with_local_loop_closures_tpu_torch.depth import (
         propagate, state as dstate)
     from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
@@ -1681,15 +1805,18 @@ def main() -> int:
         print(f"triton does not import: {e}")
     print(f"gpu (name, power limit): {gpu}")
 
-    phase("2 build K3, K1, K2, the merge and K4's compose, pyramid and "
-          "refresh")
+    phase("2 build K3, K1, K2, propagate's two kernels and K4's compose, "
+          "pyramid and refresh, and the reference merge kernel")
     t0 = time.perf_counter()
-    # one nvcc for each source, started together
+    # one nvcc for each source, started together; the reference merge
+    # kernel (tools/reference_csrc) too, which phase 3d holds the port's to
     from concurrent.futures import ThreadPoolExecutor
     built_mods = (reg_kernel, gn_kernel, stereo_kernel, propagate_kernel,
                   se3_kernel, pyramid_kernel, depth_refresh_kernel)
-    with ThreadPoolExecutor(len(built_mods)) as pool:
-        libs = list(pool.map(lambda m: m.build(), built_mods))
+    ref_kernels = load_tool("reference_kernels")
+    builds = [m.build for m in built_mods] + [ref_kernels.build_merge_lists]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda b: b(), builds))[:len(built_mods)]
     lib, lib_k1, lib_k2, lib_mg = libs[:4]
     for mod in built_mods:
         mod._library()
@@ -1943,45 +2070,38 @@ def main() -> int:
     check(all(n > 0 for n in on_real.values()),
           "the real frames exercise every EKF branch")
 
-    phase("3d propagate's merge kernels against their plain twin: one "
-          "state, 8 videos, 20 trials and a zoom-out, at 270x480")
+    phase("3d propagate's kernels against their plain twin and the path "
+          "they replace: one state, 8 videos, 20 trials and a zoom-out, at "
+          "270x480")
     # phase 3's keyframe (the state after frame 8) propagated into frame 9
     # at its tracked pose, as a keyframe step propagates
     img9 = torch.as_tensor(frames[8], device=dev)
     mg9 = pyramid.max_abs_gradient(*pyramid.gradients(img9))
-
-    def merge_case(B, dy, dx, dpose, c=cfg):
-        """candidates() of B copies of phase 3's state and keyframe, copy b
-        rolled by (dy b, dx b) pixels, its pose moved by dpose b."""
-        if B is None:
-            return (propagate.candidates(st.depth, st.kf.images[0], img9,
-                                         mg9, real_pose + dpose, c),
-                    cfg.shape)
-        depth = DepthMapState(**{n: torch.stack([
-            torch.roll(getattr(st.depth, n), (dy * b, dx * b), (0, 1))
-            for b in range(B)]) for n in FIELDS})
-        old = torch.stack([torch.roll(st.kf.images[0], (dy * b, dx * b),
-                                      (0, 1)) for b in range(B)])
-        poses = torch.stack([real_pose + dpose * b for b in range(B)])
-        return (propagate.candidates(depth, old, img9, mg9, poses, cfg),
-                (B,) + cfg.shape)
+    # the focal lengths of the parity config, the port's test config and
+    # the propagate tests' config (tests/test_torch_propagate_kernel.py)
+    division_check([(cfg.rows, cfg.cols, cfg.fx, cfg.fy, cfg.cx, cfg.cy),
+                    (TEST_CONFIG.rows, TEST_CONFIG.cols, TEST_CONFIG.fx,
+                     TEST_CONFIG.fy, TEST_CONFIG.cx, TEST_CONFIG.cy),
+                    (48, 64, 60.0, 60.0, 32.0, 24.0)], dev)
     zoom = torch.zeros(6, device=dev)
-    zoom[5] = MERGE_ZOOM
-    worst_mg, timed_mg, fans_mg = merge_phase(
-        [(label, *merge_case(*spec), is_timed) for label, spec, is_timed in (
-            ("one state", (None, 0, 0, torch.zeros(6, device=dev)), True),
-            (f"{K2_VIDEOS} videos", (K2_VIDEOS, 1, 2,
-                                     torch.full((6,), 2e-4, device=dev)),
-             True),
-            (f"{RECOVERY_BATCH} trials", (RECOVERY_BATCH, 7, 23,
-                                          torch.zeros(6, device=dev)), True),
-            (f"zoom-out (the camera {MERGE_ZOOM:g} back)",
-             (None, 0, 0, zoom, cfg.replace(max_diff_constant=1e6)),
-             False))], cfg, gpu)
+    zoom[5] = PROPAGATE_ZOOM
+    worst_mg, timed_mg, lists_mg = propagate_phase(
+        [(label, propagate_case(st, img9, mg9, real_pose + dpose, spec), c,
+          is_timed) for label, dpose, spec, c, is_timed in (
+            ("one state", 0.0, None, cfg, True),
+            (f"{K2_VIDEOS} videos (a new keyframe each)", 0.0,
+             (K2_VIDEOS, 1, 2, torch.full((6,), 2e-4, device=dev), True),
+             cfg, True),
+            (f"{RECOVERY_BATCH} trials (one new keyframe)", 0.0,
+             (RECOVERY_BATCH, 7, 23, torch.zeros(6, device=dev), False),
+             cfg, True),
+            (f"zoom-out (the camera {PROPAGATE_ZOOM:g} back)", zoom, None,
+             cfg.replace(max_diff_constant=1e6), False))], gpu)
     chunk = int(re.search(r"kChunk = (\d+);",
                           propagate_kernel.SOURCE.read_text()).group(1))
-    check(fans_mg["zoom-out"] > chunk, f"the zoom-out's largest fan-in "
-          f"{fans_mg['zoom-out']} passes the kernel's {chunk} a walk")
+    check(lists_mg["zoom-out"] > chunk, f"the zoom-out's longest list "
+          f"{lists_mg['zoom-out']} passes the {chunk} entries a walk of "
+          f"the merge selects")
 
     phase("3e K4 against its plain twins: the SE(3) compose, the pyramid "
           "and gradients, the depth-pyramid refresh, at V = 1, V = 8 and "
@@ -1993,8 +2113,8 @@ def main() -> int:
     expect = {"do_regularization": n_track + 2 * n_kf, "regularize": 1 + n_kf}
     check(n_track + n_kf == K1_STEPS["gn_run_sequence"][0],
           "K1's hand count of phase 4 is the schedule's")
-    check(n_kf == MERGE_CALLS["gn_run_sequence"],
-          "the merge's hand count of phase 4 is the schedule's")
+    check(n_kf == PROPAGATE_CALLS["gn_run_sequence"],
+          "propagate's hand count of phase 4 is the schedule's")
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.synchronize()
         reg_kernel.reset_launches()
@@ -2036,10 +2156,10 @@ def main() -> int:
           and launches_k2["gn_run_sequence"]
           == k2_expected("gn_run_sequence"),
           "K2 launch counts match the frame schedule")
-    print(f"merge launches {launches_mg['gn_run_sequence']}, expected "
-          f"{merge_expected('gn_run_sequence')} (one a keyframe step)")
-    check(launches_mg["gn_run_sequence"] == merge_expected("gn_run_sequence"),
-          "the merge kernels' launch counts match one a keyframe step")
+    print(f"propagate launches {launches_mg['gn_run_sequence']}, expected "
+          f"{propagate_expected('gn_run_sequence')} (one a keyframe step)")
+    check(launches_mg["gn_run_sequence"] == propagate_expected("gn_run_sequence"),
+          "the propagate kernels' launch counts match one a keyframe step")
     check(len(res.frame_ids) == MAIN_FRAMES - 1, "every frame tracked")
     check(len(matches) == n_kf, "one matchframes line per keyframe")
     check(poses_file.shape == (MAIN_FRAMES - 1, 10), "poses_orig.txt shape")
@@ -2150,10 +2270,10 @@ def main() -> int:
           f"{k2_expected('lc_bootstrap')}")
     check(launches_k2["lc_bootstrap"] == k2_expected("lc_bootstrap"),
           "K2 launch counts match the LC bootstrap")
-    print(f"merge launches {launches_mg['lc_bootstrap']}, expected "
-          f"{merge_expected('lc_bootstrap')} (one a keyframe step of the LC bootstrap)")
-    check(launches_mg["lc_bootstrap"] == merge_expected("lc_bootstrap"),
-          "the merge kernels' launch counts match one a keyframe step of the LC bootstrap")
+    print(f"propagate launches {launches_mg['lc_bootstrap']}, expected "
+          f"{propagate_expected('lc_bootstrap')} (one a keyframe step of the LC bootstrap)")
+    check(launches_mg["lc_bootstrap"] == propagate_expected("lc_bootstrap"),
+          "the propagate kernels' launch counts match one a keyframe step of the LC bootstrap")
     print(f"K3 launches {launches6}, expected {expect6}; {res6.num_batches} "
           f"batch(es), {len(res6.frame_ids)} corrected poses in "
           f"{wall6:.3f} s; phases (s) "
@@ -2240,10 +2360,10 @@ def main() -> int:
           f"{k2_expected('lc_mode')} (track_refine steps, replays included)")
     check(launches_k2["lc_mode"] == k2_expected("lc_mode"),
           "K2 launch counts match the LC schedule with replays")
-    print(f"merge launches {launches_mg['lc_mode']}, expected "
-          f"{merge_expected('lc_mode')} (the LC keyframe steps with replays)")
-    check(launches_mg["lc_mode"] == merge_expected("lc_mode"),
-          "the merge kernels' launch counts match the LC keyframe steps with replays")
+    print(f"propagate launches {launches_mg['lc_mode']}, expected "
+          f"{propagate_expected('lc_mode')} (the LC keyframe steps with replays)")
+    check(launches_mg["lc_mode"] == propagate_expected("lc_mode"),
+          "the propagate kernels' launch counts match the LC keyframe steps with replays")
     n_push = sum(1 for f in res7.frame_ids if f % lc_cfg.keyframe_interval
                  == 0)
     print(f"K3 launches {launches7}, expected {expect7}; "
@@ -2302,10 +2422,10 @@ def main() -> int:
           f"{k2_expected('recovery')}")
     check(launches_k2["recovery"] == k2_expected("recovery"),
           "K2 launch counts match the recovery schedule")
-    print(f"merge launches {launches_mg['recovery']}, expected "
-          f"{merge_expected('recovery')} (the keyframe steps and the two batched trials)")
-    check(launches_mg["recovery"] == merge_expected("recovery"),
-          "the merge kernels' launch counts match the keyframe steps and the two batched trials")
+    print(f"propagate launches {launches_mg['recovery']}, expected "
+          f"{propagate_expected('recovery')} (the keyframe steps and the two batched trials)")
+    check(launches_mg["recovery"] == propagate_expected("recovery"),
+          "the propagate kernels' launch counts match the keyframe steps and the two batched trials")
     recs = res8.extra["recoveries"]
     pairs8 = [(r["frame_id"], r["matched_kf_id"]) for r in recs]
     g_pairs8 = [(r["frame_id"], r["matched_kf_id"])
@@ -2425,10 +2545,10 @@ def main() -> int:
           f"{BATCH_VIDEOS} videos)")
     check(launches_k2["batched_videos"] == k2_expected("batched_videos"),
           "the videos share each K2 launch")
-    print(f"merge launches {launches_mg['batched_videos']}, expected "
-          f"{merge_expected('batched_videos')} (one video's count for all videos)")
-    check(launches_mg["batched_videos"] == merge_expected("batched_videos"),
-          "the merge kernels' launch counts match one video's count for all videos")
+    print(f"propagate launches {launches_mg['batched_videos']}, expected "
+          f"{propagate_expected('batched_videos')} (one video's count for all videos)")
+    check(launches_mg["batched_videos"] == propagate_expected("batched_videos"),
+          "the propagate kernels' launch counts match one video's count for all videos")
     poses9 = torch.cat([o.pose_wrt_world for o in outs9], 1).cpu().numpy()
     seeds9 = torch.cat([o.seeds for o in outs9], 1).cpu().numpy()
     check(poses9.shape == (BATCH_VIDEOS, n_per - 1, 6), "batched outputs")
@@ -2541,9 +2661,9 @@ def main() -> int:
                 f"print('K2 launches ' + json.dumps(stereo_kernel.launches)); "
                 f"print('K2 warm-up launches ' + "
                 f"json.dumps(stereo_kernel.warmup_launches)); "
-                f"print('merge launches ' + "
+                f"print('propagate launches ' + "
                 f"json.dumps(propagate_kernel.launches)); "
-                f"print('merge warm-up launches ' + "
+                f"print('propagate warm-up launches ' + "
                 f"json.dumps(propagate_kernel.warmup_launches)); "
                 f"sys.exit(rc)")
         argv = ["--synthetic", str(SYNTHETIC_FRAMES), "--rows",
@@ -2569,9 +2689,9 @@ def main() -> int:
         warmups_k2["synthetic"] = json.loads(re.search(
             r"K2 warm-up launches (\{.*\})", proc.stdout).group(1))
         launches_mg["synthetic"] = json.loads(re.search(
-            r"merge launches (\{.*\})", proc.stdout).group(1))
+            r"propagate launches (\{.*\})", proc.stdout).group(1))
         warmups_mg["synthetic"] = json.loads(re.search(
-            r"merge warm-up launches (\{.*\})", proc.stdout).group(1))
+            r"propagate warm-up launches (\{.*\})", proc.stdout).group(1))
         k4_check("synthetic", json.loads(re.search(
             r"K4 launches (\{.*\})", proc.stdout).group(1)), json.loads(
             re.search(r"K4 warm-up launches (\{.*\})",
@@ -2601,10 +2721,10 @@ def main() -> int:
           and launches_k2["synthetic"] == k2_expected("synthetic"),
           f"K2 launch counts {launches_k2['synthetic']} match the synthetic "
           f"schedule's {k2_expected('synthetic')}")
-    check(n_kf == MERGE_CALLS["synthetic"]
-          and launches_mg["synthetic"] == merge_expected("synthetic"),
-          f"the merge kernels' launch counts {launches_mg['synthetic']} "
-          f"match the synthetic schedule's {merge_expected('synthetic')}")
+    check(n_kf == PROPAGATE_CALLS["synthetic"]
+          and launches_mg["synthetic"] == propagate_expected("synthetic"),
+          f"the propagate kernels' launch counts {launches_mg['synthetic']} "
+          f"match the synthetic schedule's {propagate_expected('synthetic')}")
     check(ids10.tolist() == syn_golden["frame_ids"], "synthetic frame ids")
     check(bool(np.isfinite(orig10).all()), "synthetic poses finite")
     check(d_gt <= TRAJ_TOL, "poses_gt.txt matches the JAX trajectory")
@@ -2825,10 +2945,10 @@ def main() -> int:
 
     def graphed_vs_eager(label, start, imgs, c, replay=False, rots=None):
         """The interval ``imgs`` from ``start``, graphed and eager: every
-        track_refine step bit-equal, with as many K3, K1, K2 and merge
+        track_refine step bit-equal, with as many K3, K1, K2 and propagate
         launches from the graph's nodes as the eager step's wrapper calls;
         then the keyframe step twice graphed and twice eager, all four
-        bit-equal, with one launch of each merge kernel."""
+        bit-equal, with one launch of each propagate kernel."""
         g = e = start
         for k in range(len(imgs) - 1):
             rot = None if rots is None else rots[k]
@@ -2842,9 +2962,10 @@ def main() -> int:
             check(n_g == n_e and n_e[2] == {"stereo_observe": 1}
                   and sum(n_e[3].values()) == 0
                   and n_e[4] == k4_step(K4_TRACK, rot),
-                  f"{label}: K3, K1, K2, merge and K4 launches of a replay "
-                  f"{n_g} equal the eager step's {n_e}, one K2 launch, no "
-                  f"merge, K4's {k4_step(K4_TRACK, rot)}")
+                  f"{label}: K3, K1, K2, propagate and K4 launches of a "
+                  f"replay {n_g} equal the eager step's {n_e}, one K2 "
+                  f"launch, no "
+                  f"propagate, K4's {k4_step(K4_TRACK, rot)}")
             d = leaf_diffs((g, og), (e, oe))
             check(not d[:, :3].any(), f"{label}: track_refine step {k + 1} "
                   f"graphed equals eager bit for bit (max |diff| "
@@ -2859,11 +2980,10 @@ def main() -> int:
             counts.append(kernel_counts())
         torch.cuda.synchronize()
         check(all(n == counts[1] for n in counts)
-              and counts[1][3] == {"propagate_link": 1,
-                                   "propagate_merge": 1}
+              and counts[1][3] == dict.fromkeys(propagate_kernel.KERNELS, 1)
               and counts[1][4] == k4_step(K4_KEYFRAME, rot),
               f"{label}: the keyframe step's launches, graphed and eager, "
-              f"{counts}: equal, one of each merge kernel, K4's "
+              f"{counts}: equal, one of each propagate kernel, K4's "
               f"{k4_step(K4_KEYFRAME, rot)}")
         names = leaf_names(runs[0])
         for i, j, what in ((0, 1, "graph-eager"), (2, 0, "graph-graph"),
@@ -2904,17 +3024,17 @@ def main() -> int:
               f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
               f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
               f"(warm-up {r['warmup_k1']}), K2 nodes {r['k2']} (warm-up "
-              f"{r['warmup_k2']}), merge nodes {r['merge']} (warm-up "
-              f"{r['warmup_merge']}), K4 nodes {r['se3']} {r['pyramid']} "
+              f"{r['warmup_k2']}), propagate nodes {r['propagate']} (warm-up "
+              f"{r['warmup_propagate']}), K4 nodes {r['se3']} {r['pyramid']} "
               f"{r['refresh']}; capture "
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
         per_call = int(r["step"] == "keyframe_step")
-        check(r["merge"] == {"propagate_link": per_call,
-                             "propagate_merge": per_call},
-              f"graph {r['step']}: {per_call} node of each merge kernel, "
-              f"found by name")
+        check(r["propagate"] == dict.fromkeys(propagate_kernel.KERNELS,
+                                              per_call),
+              f"graph {r['step']}: {per_call} node of each propagate "
+              f"kernel, found by name")
         k4_want = k4_step(K4_KEYFRAME if per_call else K4_TRACK,
                           True if r["init_rotation"] else None)
         check({**r["se3"], **r["pyramid"], **r["refresh"]} == k4_want,
@@ -2929,6 +3049,15 @@ def main() -> int:
                   f"a track_refine graph holds {r['nodes'].get('kernel')} "
                   f"kernel nodes, {TRACK_GRAPH_NODES} (517 before K4), one "
                   f"of them the pyramid's")
+        if r["step"] == "keyframe_step" and not r["replay"] and not \
+                pipeline._needs_window(r["cfg"]) and r["lead"] == ():
+            kf_nodes = r["nodes"].get("kernel", 0)
+            print(f"graph keyframe_step (one video): {kf_nodes} kernel "
+                  f"nodes (276 before the propagate kernels), by function: "
+                  f"{json.dumps(r['kernel_names'])}")
+            check(kf_nodes == KEYFRAME_GRAPH_NODES,
+                  f"a keyframe graph holds {kf_nodes} kernel nodes, "
+                  f"KEYFRAME_GRAPH_NODES {KEYFRAME_GRAPH_NODES}")
     print(f"{len(graphs.stats())} graphs in {len(pools14)} pools, "
           f"{sum(pools14.values()) / 2**20:.1f} MiB")
 
@@ -3075,27 +3204,28 @@ def main() -> int:
                     "plain_ms": timed_k2[K2_VIDEOS][1],
                     "bound_ms": timed_k2[K2_VIDEOS][2],
                     "bound_by": timed_k2[K2_VIDEOS][3]}}]
-    # the merge: one call's memset and two launches on phase 3d's one
-    # state; 8 videos and 20 trials under "batched"
+    # propagate: one call's memset and two launches on phase 3d's one
+    # state; 8 videos and 20 trials under "batched"; "replaced_ms" is ATen
+    # candidates() with the merge kernel the two replace
     one_mg = timed_mg["one state"]
     mg_rows = [
-        {"name": "propagate_kernel.merge", "route": "cuda",
+        {"name": "propagate_kernel.propagate", "route": "cuda",
          "source": os.path.join(PKG, "csrc", "propagate_kernel.cu"),
          "replaces": "egomotion_with_local_loop_closures_tpu/depth/"
-                     "propagate.py:101",
+                     "propagate.py:38",
          "launches": launches_mg["gn_run_sequence"]["propagate_merge"],
          "launches_by_path": {k: v["propagate_merge"]
                               for k, v in launches_mg.items()},
          "warmup_launches_by_path": {k: v["propagate_merge"]
                                      for k, v in warmups_mg.items()},
-         "kernels_a_call": ["propagate_link", "propagate_merge"],
+         "kernels_a_call": list(propagate_kernel.KERNELS),
          "max_abs_err": worst_mg,
          "ms": one_mg[0], "plain_ms": one_mg[2], "bound_ms": one_mg[3],
          "bound_by": one_mg[4], "library_ms": None,
-         "index_add_ms": one_mg[1],
+         "replaced_ms": one_mg[1],
          "plain_ms_of": "one eager call of the twin, its host read "
                         "included",
-         "batched": {label: {"ms": t[0], "index_add_ms": t[1],
+         "batched": {label: {"ms": t[0], "replaced_ms": t[1],
                              "plain_ms": t[2], "bound_ms": t[3],
                              "bound_by": t[4]}
                      for label, t in timed_mg.items()

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's hand-written kernels (K1,
-// csrc/gn_kernel.cu, K2, csrc/stereo_kernel.cu, and the SE(3) compose,
-// csrc/se3_kernel.cu): the Lie-group algebra
-// of geom/lie.py formula by formula (exp_se3, log_se3 and their parts),
+// csrc/gn_kernel.cu, K2, csrc/stereo_kernel.cu, the SE(3) compose,
+// csrc/se3_kernel.cu, and propagate, csrc/propagate_kernel.cu): the
+// Lie-group algebra of geom/lie.py formula by formula (exp_se3, log_se3
+// and their parts),
 // NaN-propagating clamps, and the port's bilinear gather semantics
 // (image/interp.py: to_index, corner, blend).  Each source that includes
 // this header compiles its own copy of the helpers (internal linkage), so

@@ -6,7 +6,9 @@ Port of ``egomotion_with_local_loop_closures_tpu/depth/propagate.py``
 - :func:`propagate` -- ``propagateDepth`` (:1003-1157), with the JAX
   package's merge: per target cell the nearest (largest inverse depth)
   candidate wins, and every candidate compatible with it is fused by
-  inverse variance (``ops/propagate_kernel.py``).
+  inverse variance.  On CUDA tensors it is the hand-written kernels of
+  ``ops/propagate_kernel.py``; :func:`candidates` and
+  ``ops/propagate_kernel.py::plain_merge`` are their plain twin.
 - :func:`fill_holes` -- ``fillDepthHoles`` (:1317-1432), with the
   reference's row-prefix validity score.
 - :func:`regularize` -- ``regularizeDepthMap`` (:1436-1543).
@@ -62,10 +64,15 @@ def propagate(state: DepthMapState,
     for connection recovery's candidates, or one per state, (B, H, W), as
     for the videos of the batched pipeline.
 
-    :func:`candidates` reprojects and gates; the merge is
-    ``ops/propagate_kernel.py::merge``: its CUDA kernels for CUDA
-    tensors, its plain twin for CPU tensors."""
-    return propagate_kernel.merge(
+    For CUDA tensors: ``ops/propagate_kernel.py::propagate``, one memset
+    and two launches.  For CPU tensors its plain twin: :func:`candidates`
+    reprojects and gates, ``ops/propagate_kernel.py::plain_merge``
+    merges."""
+    if state.idepth.device.type != "cpu":
+        return propagate_kernel.propagate(state, old_kf_image, new_kf_image,
+                                          new_kf_maxgrad, pose_new_wrt_old,
+                                          cfg)
+    return propagate_kernel.plain_merge(
         *candidates(state, old_kf_image, new_kf_image, new_kf_maxgrad,
                     pose_new_wrt_old, cfg), state.idepth.shape, cfg)
 
@@ -78,7 +85,8 @@ def candidates(state: DepthMapState, old_kf_image: torch.Tensor,
     every source pixel's flat target cell (int64, candidate b's cells from
     b*H*W on), whether it is a candidate (valid, in the image, passing the
     photometric and gradient gates), its inverse depth and inflated
-    variance in the new keyframe, and its validity; each flat (N,)."""
+    variance in the new keyframe, and its validity; each flat (N,).  On
+    the card it is the front half of the kernels' plain twin."""
     H, W = old_kf_image.shape[-2:]
     lead = old_kf_image.shape[:-2]
     dev = old_kf_image.device
@@ -94,9 +102,11 @@ def candidates(state: DepthMapState, old_kf_image: torch.Tensor,
     src_valid = state.valid
     ids = torch.where(torch.abs(state.idepth_smoothed) > 1e-12,
                       state.idepth_smoothed, 1e-12)
-    # pn = R * Kinv p / idepth_smoothed + t   (:1047)
-    rx = (x - cx) / fx
-    ry = (y - cy) / fy
+    # pn = R * Kinv p / idepth_smoothed + t   (:1047); x / fx as ATen's
+    # CUDA division by a scalar takes it, so the CPU, the card and the
+    # kernels round alike
+    rx = (x - cx) * camera.division_reciprocal32(fx)
+    ry = (y - cy) * camera.division_reciprocal32(fy)
     px = (R[0][0] * rx + R[0][1] * ry + R[0][2]) / ids + t[0]
     py = (R[1][0] * rx + R[1][1] * ry + R[1][2]) / ids + t[1]
     pz = (R[2][0] * rx + R[2][1] * ry + R[2][2]) / ids + t[2]

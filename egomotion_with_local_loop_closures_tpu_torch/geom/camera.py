@@ -11,9 +11,21 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from egomotion_with_local_loop_closures_tpu_torch.image import interp
+
+
+def division_reciprocal32(c: float) -> float:
+    """1/c in float64, rounded once to float32: what ATen's CUDA kernels
+    multiply a float32 tensor by to divide it by the Python scalar c
+    (``t / c``, measured with PyTorch 2.11 and CUDA 12.8), where the CPU
+    divides.  It can differ from float32(1) / float32(c) in the last
+    place (c = 410.601403, the parity config's fx, is one).  Propagate's
+    twin and kernels multiply by it on every device, so they keep the
+    bits that ``t / c`` gives on the card."""
+    return float(np.float32(1.0 / c))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,28 +1,28 @@
-"""The candidate merge of keyframe depth propagation as hand-written CUDA
-kernels, summed in a fixed order.
+"""Keyframe depth propagation as hand-written CUDA kernels: the
+reprojection, the gates and the candidate merge, summed in a fixed order.
 
-``depth/propagate.py::propagate`` reprojects every hypothesis of the old
-keyframe into the new keyframe's grid (plain ATen code) and hands the
-result here: each source pixel's flat target cell, whether it is a
-candidate, and its propagated inverse depth, variance and validity.  The
-merge (the JAX package's ``depth/propagate.py:100-135``) keeps, per cell,
-the nearest candidate and fuses every candidate compatible with it by
-inverse variance.  The CUDA source is ``csrc/propagate_kernel.cu``: a
-memset and two launches a call, ``propagate_link`` (a thread a source)
-and ``propagate_merge`` (a thread a target), for one state or a batch;
-what bounds it is written at the top of that file.
+``depth/propagate.py::propagate`` calls :func:`propagate` for CUDA
+tensors: every hypothesis of the old keyframe is reprojected into the new
+keyframe's grid, gated, and each target cell keeps the nearest candidate
+and fuses every candidate compatible with it by inverse variance (the JAX
+package's ``depth/propagate.py:40-135``).  The CUDA source is
+``csrc/propagate_kernel.cu``: a memset and two launches a call,
+``propagate_candidates`` (a thread a source pixel: the reprojection, the
+gates and the push onto its target's list) and ``propagate_merge`` (a
+thread a target cell), for one state or a batch; what bounds it is
+written at the top of that file.
 
-The sums run over each cell's compatible candidates in ascending source
-index, from +0.0: the order of the CPU's sequential ``index_add_`` and of
-the JAX package's scatter on the CPU.  So :func:`merge` gives the same
-bits on the card as :func:`plain_merge`, its plain twin, and two runs on
-the card give the same bits; float ``index_add_`` on CUDA (the merge
-before this kernel) adds in atomic order, and two runs differed.
+The plain twin is ``depth/propagate.py::candidates`` followed by
+:func:`plain_merge`, which runs for CPU tensors.  The sums run over each
+cell's compatible candidates in ascending source index, from +0.0: the
+order of the CPU's sequential ``index_add_`` and of the JAX package's
+scatter on the CPU.  So :func:`propagate` gives the same bits on the card
+as the twin, and two runs on the card give the same bits; float
+``index_add_`` on CUDA adds in atomic order, and two runs differed.
 
-:func:`merge` runs :func:`plain_merge` for tensors on the CPU.  For CUDA
-tensors it launches the kernels or raises; it never falls back.  Its
-launches are counted in :data:`launches`, by kernel; a call made while a
-CUDA graph captures launches nothing, so ``runtime/graphs.py`` counts
+:func:`propagate` launches the kernels or raises; it never falls back.
+Its launches are counted in :data:`launches`, by kernel; a call made while
+a CUDA graph captures launches nothing, so ``runtime/graphs.py`` counts
 those calls apart with :func:`counting_into` and adds the graph's nodes
 of these kernels at each replay.  Nothing here reads the card's values
 back to the host, so a graph captures every call.
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import math
 import re
 from pathlib import Path
 from typing import Dict, Iterator, Optional, Tuple
@@ -42,16 +41,19 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch import ops
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.depth.state import (
-    DepthMapState)
+    FIELDS, DepthMapState)
+from egomotion_with_local_loop_closures_tpu_torch.geom.camera import (
+    division_reciprocal32)
 
 SOURCE: Path = ops.CSRC / "propagate_kernel.cu"
+KERNELS = ("propagate_candidates", "propagate_merge")
 
 # Launches on the CUDA path since the last reset_launches(), by kernel:
 # one of each a call.
-launches: Dict[str, int] = {"propagate_link": 0, "propagate_merge": 0}
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # Launches of the eager warm-ups before CUDA graph captures, kept apart
 # from launches (runtime/graphs.py), since the last reset_launches().
-warmup_launches: Dict[str, int] = {"propagate_link": 0, "propagate_merge": 0}
+warmup_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # where the wrapper counts its calls: launches, or counting_into's dict
 _counts: Dict[str, int] = launches
 
@@ -87,9 +89,9 @@ def counting_into(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
 
 def wrapper_of(kernel_name: str) -> Optional[str]:
     """The counter of the CUDA function of this (mangled) name:
-    ``propagate_link`` or ``propagate_merge``; None for any other
+    ``propagate_candidates`` or ``propagate_merge``; None for any other
     function."""
-    m = re.search(r"\d+(propagate_link|propagate_merge)E", kernel_name)
+    m = re.search(r"\d+(propagate_candidates|propagate_merge)E", kernel_name)
     return m.group(1) if m else None
 
 
@@ -100,11 +102,11 @@ def build() -> Path:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C signature of ``ellc_propagate_merge`` on a loaded
+    """Declares the C signature of ``ellc_propagate`` on a loaded
     library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ellc_propagate_merge.argtypes = [p] * 14 + [i, f, f, p]
-    lib.ellc_propagate_merge.restype = i
+    lib.ellc_propagate.argtypes = [p] * 17 + [i] * 5 + [f] * 13 + [p]
+    lib.ellc_propagate.restype = i
     return lib
 
 
@@ -124,67 +126,98 @@ def _state(planes: Tuple[torch.Tensor, ...], shape) -> DepthMapState:
     return DepthMapState(*(p.reshape(shape) for p in planes))
 
 
-def _launch(lib: ctypes.CDLL, tgt, cand, idepth, var, validity, shape,
-            cfg: ELLCConfig, stream: int) -> DepthMapState:
-    """The memset and two launches of ``ellc_propagate_merge`` on
-    ``stream`` over contiguous (N,) tensors of one device; returns the
-    merged state of shape ``shape`` (N cells)."""
-    n = tgt.numel()
-    dev = tgt.device
-    scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
-    out = (*(torch.empty(n, dtype=torch.float32, device=dev)
-             for _ in range(5)),
-           torch.empty(n, dtype=torch.int32, device=dev),
-           torch.empty(n, dtype=torch.bool, device=dev))
-    err = lib.ellc_propagate_merge(
-        *[ctypes.c_void_p(t.data_ptr()) for t in
-          (tgt, cand, idepth, var, validity, scratch[0], scratch[1], *out)],
-        n, cfg.diff_fac_prop_merge, validity_cap(cfg),
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"propagate merge launch failed: cudaError {err}")
-    return _state(out, shape)
-
-
-def _check(named: Dict[str, torch.Tensor], shape) -> None:
-    n = math.prod(shape)
-    dev = named["tgt"].device
-    if dev.type != "cuda":
-        raise ValueError(f"the merge runs on CUDA tensors or CPU tensors, "
-                         f"not {dev}")
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"{n} cells: the kernel takes 1 to 2^31 - 1")
-    dtypes = dict(tgt=torch.int64, cand=torch.bool)
+def _inputs(state: DepthMapState, old_kf_image, new_kf_image,
+            new_kf_maxgrad, pose) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """The kernels' inputs by name, contiguous and checked, with the new
+    keyframe's and the pose's strides (0: one for every state)."""
+    shape = tuple(state.idepth.shape)
+    if len(shape) not in (2, 3) or 0 in shape:
+        raise ValueError(f"state planes of shape {shape}: (H, W) or "
+                         f"(B, H, W) expected")
+    H, W = shape[-2:]
+    named = dict(idepth_smoothed=state.idepth_smoothed, idepth=state.idepth,
+                 validity=state.validity, valid=state.valid,
+                 old_kf_image=old_kf_image, new_kf_image=new_kf_image,
+                 new_kf_maxgrad=new_kf_maxgrad, pose=pose)
+    dev = state.idepth.device
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtypes.get(name, torch.float32):
-            raise TypeError(f"{name} has dtype {t.dtype}, expected "
-                            f"{dtypes.get(name, torch.float32)}")
-        if tuple(t.shape) != (n,):
+        want = torch.bool if name == "valid" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
+        ok = {"pose": ((6,), shape[:-2] + (6,)),
+              "new_kf_image": ((H, W), shape),
+              "new_kf_maxgrad": ((H, W), shape)}.get(name, (shape,))
+        if tuple(t.shape) not in ok:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"({n},)")
+                             f"one of {ok}")
+    if new_kf_image.shape != new_kf_maxgrad.shape:
+        raise ValueError("new_kf_image and new_kf_maxgrad differ in shape")
+    if not 0 < state.idepth.numel() < 2 ** 31:
+        raise ValueError(f"{state.idepth.numel()} cells: the kernels take "
+                         f"1 to 2^31 - 1")
+    new_stride = H * W if new_kf_image.dim() == len(shape) == 3 else 0
+    pose_stride = 6 if pose.dim() == 2 else 0
+    return ({k: t.contiguous() for k, t in named.items()}, new_stride,
+            pose_stride)
 
 
-def merge(tgt: torch.Tensor, cand: torch.Tensor, idepth: torch.Tensor,
-          var: torch.Tensor, validity: torch.Tensor, shape,
-          cfg: ELLCConfig) -> DepthMapState:
-    """The merged state (planes of ``shape``, (H, W) or (B, H, W)) of N =
-    prod(shape) sources, each given as (N,): its flat target cell ``tgt``
-    (int64, in 0..N-1), whether it is a candidate (``cand``), and its
-    propagated inverse depth, variance and validity.  The kernels for
-    CUDA tensors, :func:`plain_merge` for CPU tensors."""
-    if tgt.device.type == "cpu":
-        return plain_merge(tgt, cand, idepth, var, validity, shape, cfg)
-    named = dict(tgt=tgt, cand=cand, idepth=idepth, var=var,
-                 validity=validity)
-    named = {k: t.contiguous() for k, t in named.items()}
-    _check(named, tuple(shape))
-    with torch.cuda.device(tgt.device):
-        out = _launch(_library(), *named.values(), shape, cfg,
+def _launch(lib: ctypes.CDLL, state: DepthMapState, old_kf_image,
+            new_kf_image, new_kf_maxgrad, pose, cfg: ELLCConfig,
+            stream: int, out: Optional[DepthMapState] = None
+            ) -> DepthMapState:
+    """The memset and two launches of ``ellc_propagate`` on ``stream``
+    over tensors of one device; returns the propagated state, written into
+    ``out`` when given (contiguous planes of the state's shape)."""
+    shape = tuple(state.idepth.shape)
+    named, new_stride, pose_stride = _inputs(
+        state, old_kf_image, new_kf_image, new_kf_maxgrad, pose)
+    H, W = shape[-2:]
+    B = state.idepth.numel() // (H * W)
+    n = B * H * W
+    dev = state.idepth.device
+    head = torch.empty(n, dtype=torch.int32, device=dev)
+    rec = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if out is None:
+        out = DepthMapState(
+            *(torch.empty(shape, dtype=torch.float32, device=dev)
+              for _ in range(5)),
+            torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(shape, dtype=torch.bool, device=dev))
+    err = lib.ellc_propagate(
+        *[ctypes.c_void_p(t.data_ptr()) for t in
+          (*named.values(), head, rec,
+           *(getattr(out, f) for f in FIELDS))],
+        B, H, W, new_stride, pose_stride, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+        division_reciprocal32(cfg.fx), division_reciprocal32(cfg.fy),
+        W - 3.1, H - 3.1,
+        cfg.max_diff_constant, cfg.max_diff_grad_mult,
+        cfg.min_abs_grad_decrease, cfg.diff_fac_prop_merge,
+        validity_cap(cfg), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"propagate launch failed: cudaError {err}")
+    return out
+
+
+def propagate(state: DepthMapState, old_kf_image: torch.Tensor,
+              new_kf_image: torch.Tensor, new_kf_maxgrad: torch.Tensor,
+              pose_new_wrt_old: torch.Tensor, cfg: ELLCConfig
+              ) -> DepthMapState:
+    """``depth/propagate.py::propagate`` on CUDA tensors: one memset and
+    two launches for one state (planes (H, W), pose (6,)) or a batch
+    (planes and old keyframe images (B, H, W), poses (B, 6)), the new
+    keyframe shared, (H, W), or one per state, (B, H, W)."""
+    dev = state.idepth.device
+    if dev.type != "cuda":
+        raise ValueError(f"the propagate kernels take CUDA tensors, not "
+                         f"{dev}")
+    with torch.cuda.device(dev):
+        out = _launch(_library(), state, old_kf_image, new_kf_image,
+                      new_kf_maxgrad, pose_new_wrt_old, cfg,
                       torch.cuda.current_stream().cuda_stream)
-    _counts["propagate_link"] += 1
-    _counts["propagate_merge"] += 1
+    for k in KERNELS:
+        _counts[k] += 1
     return out
 
 
@@ -244,7 +277,7 @@ def _finish(sums, shape, cfg) -> DepthMapState:
 
 def plain_merge(tgt, cand, idepth, var, validity, shape,
                 cfg: ELLCConfig) -> DepthMapState:
-    """The plain twin of the kernels, on any device: the same winner,
+    """The plain twin of the merge, on any device: the same winner,
     compatibility and sums, each cell's compatible candidates added in
     ascending source index from +0.0.  On the CPU, ``index_add_`` adds
     that way (it runs sequentially), with no host read, so a step body

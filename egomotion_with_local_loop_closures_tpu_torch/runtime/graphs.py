@@ -36,7 +36,7 @@ atomic (the keyframe step's propagate merges in a fixed order,
 
 The launch counts of the port's hand-written kernels, K3
 (``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``), K2
-(``ops/stereo_kernel.launches``), propagate's merge
+(``ops/stereo_kernel.launches``), propagate's two
 (``ops/propagate_kernel.launches``) and K4's compose, pyramid and refresh
 (``ops/se3_kernel``, ``ops/pyramid_kernel``,
 ``ops/depth_refresh_kernel``): the warm-up's launches are counted
@@ -66,11 +66,11 @@ from egomotion_with_local_loop_closures_tpu_torch.ops import (
     reg_kernel, se3_kernel, stereo_kernel)
 
 # the modules of the hand-written kernels whose launches a graph counts,
-# by the name of the kernel: K3, K1, K2, propagate's merge and K4's three
+# by the name of the kernel: K3, K1, K2, propagate's two and K4's three
 # (the SE(3) compose, the pyramid and gradients, the depth-pyramid
 # refresh)
 _KERNELS = {"k3": reg_kernel, "k1": gn_kernel, "k2": stereo_kernel,
-            "merge": propagate_kernel, "se3": se3_kernel,
+            "propagate": propagate_kernel, "se3": se3_kernel,
             "pyramid": pyramid_kernel, "refresh": depth_refresh_kernel}
 
 # CUgraphNodeType values of libcuda's graph API
@@ -144,6 +144,7 @@ class Graph:
     capture_s: float            # warm-up and capture, host seconds
     instantiate_s: float
     nodes: Dict[str, int]       # graph nodes by type
+    kernel_names: Dict[str, int]  # kernel nodes by function name
 
 
 # (step function, key) -> its graph; (device, video axis) -> pool handle
@@ -158,14 +159,15 @@ def _check(err: int, call: str) -> None:
 
 
 def _graph_nodes(graph: torch.cuda.CUDAGraph
-                 ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
+                 ) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]],
+                            Dict[str, int]]:
     """The nodes of a captured (not yet instantiated) graph by type, from
     ``raw_cuda_graph()`` and libcuda's cuGraphGetNodes (the runtime's
-    cudaGraphGetNodes), and the hand-written kernels' nodes by label of
+    cudaGraphGetNodes), the hand-written kernels' nodes by label of
     ``_KERNELS`` and wrapper (``{"k3": {...}, "k1": {...}, ...}``),
-    from each kernel node's function
-    (cuGraphKernelNodeGetParams) and its name (cuFuncGetName, or
-    cuKernelGetName for a library kernel)."""
+    and every kernel node by its function's (mangled) name, from each
+    kernel node's function (cuGraphKernelNodeGetParams) and its name
+    (cuFuncGetName, or cuKernelGetName for a library kernel)."""
     cuda = ctypes.CDLL("libcuda.so.1")
     g = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -173,6 +175,7 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
     nodes = (ctypes.c_void_p * n.value)()
     _check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     counts: Dict[str, int] = {}
+    names: Dict[str, int] = {}
     ours = _zero_counts()
     kind = ctypes.c_int(0)
     params = _KernelNodeParams()
@@ -195,11 +198,13 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph
             _check(cuda.cuKernelGetName(ctypes.byref(name),
                                         ctypes.c_void_p(params.kern)),
                    "cuKernelGetName")
+        fn_name = name.value.decode()
+        names[fn_name] = names.get(fn_name, 0) + 1
         for label, mod in _KERNELS.items():
-            wrapper = mod.wrapper_of(name.value.decode())
+            wrapper = mod.wrapper_of(fn_name)
             if wrapper is not None:
                 ours[label][wrapper] += 1
-    return counts, ours
+    return counts, ours, names
 
 
 def _zero_counts() -> Dict[str, Dict[str, int]]:
@@ -241,7 +246,7 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
             _counting_into(calls):
         out = fn(*tree_unflatten(spec, static_in))
     t1 = time.perf_counter()
-    nodes, ours = _graph_nodes(graph)
+    nodes, ours, names = _graph_nodes(graph)
     if ours != calls:
         raise RuntimeError(f"the captured graph holds the kernel nodes "
                            f"{ours}, but the capture made the wrapper calls "
@@ -256,7 +261,7 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
                  out_spec=out_spec, through=through, kernel_nodes=ours,
                  warmup=warm, pool=pool,
                  lead=lead, capture_s=t1 - t0, instantiate_s=t2 - t1,
-                 nodes=nodes)
+                 nodes=nodes, kernel_names=names)
 
 
 def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
@@ -350,6 +355,7 @@ def stats() -> List[dict]:
                          init_rotation=rot, lead=g.lead,
                          device=str(device), capture_s=g.capture_s,
                          instantiate_s=g.instantiate_s, nodes=dict(g.nodes),
+                         kernel_names=dict(g.kernel_names),
                          **{label: dict(g.kernel_nodes[label])
                             for label in _KERNELS},
                          **{f"warmup_{label}": dict(g.warmup[label])

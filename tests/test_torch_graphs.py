@@ -332,7 +332,7 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
         assert (reg_kernel.launches, gn_kernel.launches,
                 stereo_kernel.launches) == counts
         _assert_bits((graphed, out_g), (eager, out_e))
-    one_each = {"propagate_link": 1, "propagate_merge": 1}
+    one_each = dict.fromkeys(propagate_kernel.KERNELS, 1)
     propagate_kernel.reset_launches()
     kf_e = pipeline._keyframe_step(eager, image, cfg, replay, rot)
     assert propagate_kernel.launches == one_each
