@@ -3020,8 +3020,8 @@ def main() -> int:
               f"rotation {r['init_rotation']}, window "
               f"{pipeline._needs_window(r['cfg'])}, "
               f"{r['cfg'].rows}x{r['cfg'].cols}): nodes {r['nodes']} "
-              f"(the eager GN frame before K1: 24,475 launches, "
-              f"tools/profile_port_gn.py), K3 nodes {r['k3']} (its "
+              f"(the eager GN frame before K1: 24,475 launches, counted "
+              f"in a profiler trace of eager steps), K3 nodes {r['k3']} (its "
               f"warm-up launched {r['warmup_k3']}), K1 nodes {r['k1']} "
               f"(warm-up {r['warmup_k1']}), K2 nodes {r['k2']} (warm-up "
               f"{r['warmup_k2']}), propagate nodes {r['propagate']} (warm-up "

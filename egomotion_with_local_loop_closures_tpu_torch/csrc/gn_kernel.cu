@@ -67,6 +67,12 @@
 // of a batch gets the bits it gets alone.  A converged or failed video
 // freezes: its values stay those of its last live iteration.
 //
+// Both kernels count the live iterations into an int64 row of the level
+// (utils/profiling.py's k1_live table; null counts nothing): entry i gains
+// one for each video not frozen at the start of iteration i, with one
+// integer atomicAdd, from the cluster's rank-0 block at each of its
+// iterations, or from gn_step's block that takes the video's last ticket.
+//
 // The device helpers (exp_se3, log_se3 and their parts, the NaN-propagating
 // clamps, and the gather semantics to_index, corner and blend) live in
 // csrc/ellc_device.cuh, which K2 (csrc/stereo_kernel.cu) includes too.
@@ -152,7 +158,8 @@ struct StepArgs {
   float* T;               // (V, 12): the transform of st.pose
   float* partials;        // (V, nblocks, kSums)
   int32_t* tickets;       // (V,), 0 between launches
-  int nblocks, mode, first;
+  unsigned long long* live;  // the level's live counts, or null
+  int nblocks, mode, first, iter;
   float term_w[6];
 };
 
@@ -160,6 +167,7 @@ struct LevelArgs {
   Planes pl;
   const float* pose0;     // (V, 6)
   State st;
+  unsigned long long* live;  // the level's live counts, or null
   int num_iters;
   float term_w[6];
 };
@@ -451,6 +459,8 @@ __global__ void __launch_bounds__(kThreads, kStepMinBlocks)
   }
   __syncthreads();
   if (t != 0) return;
+  // this video was live at the start of the iteration
+  if (a.live != nullptr) atomicAdd(a.live + a.iter, 1ull);
   Video s;
   for (int i = 0; i < 6; ++i) s.pose[i] = a.pose_in[6 * v + i];
   for (int k = 0; k < 12; ++k) s.T[k] = s_T[k];
@@ -488,6 +498,7 @@ __global__ void __cluster_dims__(kClusterBlocks, 1, 1)
   }
   __syncthreads();
   for (int it = 0; it < a.num_iters && s_T[12] == 0.f; ++it) {
+    if (rank == 0 && t == 0 && a.live != nullptr) atomicAdd(a.live + it, 1ull);
     float T[12], acc[kSlots];
 #pragma unroll
     for (int k = 0; k < 12; ++k) T[k] = s_T[k];
@@ -539,7 +550,9 @@ Planes planes_of(const float* kf_image, const float* kf_depth,
 // iteration (pose_in the level's pose, the freeze state started, the
 // transform formed from it), else pose_in is st.pose and every array,
 // T (V, 12) too, holds the previous iteration's values.
-// partials (V, ceil(h w / 256), 29) is scratch, tickets (V,) must be 0.
+// partials (V, ceil(h w / 256), 29) is scratch, tickets (V,) must be 0;
+// live (or null) is the level's row of live counts, iter this iteration's
+// index in the level.
 // mode 1 (linearize): the partials alone, at row offset y_offset; st.done
 // (or null) names the videos to skip.  mode 2 (finish): one block a video
 // sums nparts given partials (V, nparts, 29), solves, updates and freezes.
@@ -548,16 +561,16 @@ extern "C" int ellc_gn_step(
     const float* cur_image, const float* cur_gradx, const float* cur_grady,
     const float* pose_in, float* pose, float* wp_last, int32_t* iters,
     float* energy, float* valid, int32_t* done, float* T, float* partials,
-    int32_t* tickets, int V, int h, int w, int ch,
-    int y_offset, int nparts, int mode, int first, float fx, float fy,
-    float cx, float cy, float noise2, float half_huber, float tw0, float tw1,
-    float tw2, float tw3, float tw4, float tw5, void* stream) {
+    int32_t* tickets, unsigned long long* live, int V, int h, int w, int ch,
+    int y_offset, int nparts, int mode, int first, int iter, float fx,
+    float fy, float cx, float cy, float noise2, float half_huber, float tw0,
+    float tw1, float tw2, float tw3, float tw4, float tw5, void* stream) {
   const int nblocks = mode == kFinish ? nparts : (h * w + kThreads - 1) / kThreads;
   const StepArgs a{planes_of(kf_image, kf_depth, kf_var, cur_image,
                              cur_gradx, cur_grady, h, w, ch, y_offset, fx,
                              fy, cx, cy, noise2, half_huber),
                    pose_in, State{pose, wp_last, iters, energy, valid, done},
-                   T, partials, tickets, nblocks, mode, first,
+                   T, partials, tickets, live, nblocks, mode, first, iter,
                    {tw0, tw1, tw2, tw3, tw4, tw5}};
   const dim3 grid(mode == kFinish ? 1 : nblocks, V);
   const cudaStream_t stream_ = (cudaStream_t)stream;
@@ -566,12 +579,14 @@ extern "C" int ellc_gn_step(
 }
 
 // gn_level_cluster over V videos: num_iters (>= 1) GN iterations of a
-// level from pose0 (V, 6), the freeze state started; writes the state.
+// level from pose0 (V, 6), the freeze state started; writes the state and
+// counts the live iterations into live[0..num_iters) (or not, if null).
 extern "C" int ellc_gn_level_cluster(
     const float* kf_image, const float* kf_depth, const float* kf_var,
     const float* cur_image, const float* cur_gradx, const float* cur_grady,
     const float* pose0, float* pose, float* wp_last, int32_t* iters,
-    float* energy, float* valid, int32_t* done, int V, int h, int w, int ch,
+    float* energy, float* valid, int32_t* done, unsigned long long* live,
+    int V, int h, int w, int ch,
     int num_iters, float fx, float fy, float cx,
     float cy, float noise2, float half_huber, float tw0, float tw1,
     float tw2, float tw3, float tw4, float tw5, void* stream) {
@@ -579,7 +594,7 @@ extern "C" int ellc_gn_level_cluster(
                               cur_gradx, cur_grady, h, w, ch, 0, fx, fy, cx,
                               cy, noise2, half_huber),
                     pose0, State{pose, wp_last, iters, energy, valid, done},
-                    num_iters, {tw0, tw1, tw2, tw3, tw4, tw5}};
+                    live, num_iters, {tw0, tw1, tw2, tw3, tw4, tw5}};
   const dim3 grid(kClusterBlocks, V);
   const size_t smem = kClusterSmemFloats * sizeof(float);
   const cudaStream_t stream_ = (cudaStream_t)stream;

@@ -33,6 +33,9 @@ iteration's starts with a serial ``exp_se3`` (gn_step hands it on in
 :data:`launches`; a call made while a CUDA graph captures launches
 nothing, so ``runtime/graphs.py`` counts those calls apart with
 :func:`counting_into` and adds the graph's K1 nodes at each replay.
+:func:`gn_level` has both kernels count its live iterations on the card,
+into the level's row of ``utils/profiling``'s ``k1_live`` table (one
+integer atomic a live video an iteration; no launch and no graph node).
 
 For tensors on the CPU each function runs the plain PyTorch version
 (``track/alignment.py``: ``_gn_quantities``, ``solve_spd``,
@@ -59,6 +62,7 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch import ops
 from egomotion_with_local_loop_closures_tpu_torch.config import ELLCConfig
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
 
 SOURCE: Path = ops.CSRC / "gn_kernel.cu"
 THREADS = 256           # gn_step's block: one template pixel a thread
@@ -142,9 +146,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of ``ellc_gn_step`` and
     ``ellc_gn_level_cluster`` on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ellc_gn_step.argtypes = [p] * 16 + [i] * 8 + [f] * 12 + [p]
+    lib.ellc_gn_step.argtypes = [p] * 17 + [i] * 9 + [f] * 12 + [p]
     lib.ellc_gn_step.restype = i
-    lib.ellc_gn_level_cluster.argtypes = [p] * 13 + [i] * 5 + [f] * 12 + [p]
+    lib.ellc_gn_level_cluster.argtypes = [p] * 14 + [i] * 5 + [f] * 12 + [p]
     lib.ellc_gn_level_cluster.restype = i
     return lib
 
@@ -311,11 +315,14 @@ def _launch_step(lib: ctypes.CDLL, mode: int, first: bool,
                  kf: Optional[alignment.KeyframeLevel] = None,
                  cur: Optional[alignment.CurrentLevel] = None,
                  intr: Tuple[float, float, float, float] = (0, 0, 0, 0),
-                 y_offset: int = 0, ws: Optional[Workspace] = None) -> None:
+                 y_offset: int = 0, ws: Optional[Workspace] = None,
+                 live: Optional[torch.Tensor] = None, it: int = 0) -> None:
     """One launch of ``ellc_gn_step`` on ``stream``: ``mode`` _ITERATE
     (planes, ``ws`` and a whole state), _LINEARIZE (planes; of the state
     only ``done`` may be given, the rest None) or _FINISH (no planes; the
-    given partials)."""
+    given partials).  ``live``: the level's int64 row of live counts,
+    where the launch, iteration ``it`` of its level, counts its live
+    videos (None: none)."""
     V = math.prod(pose_in.shape[:-1])
     if kf is None:
         planes, h, w, ch = (None,) * 6, 0, 0, 0
@@ -324,9 +331,10 @@ def _launch_step(lib: ctypes.CDLL, mode: int, first: bool,
         _, h, w, ch = _shapes(kf, cur, pose_in)
     tickets, T = (None, None) if ws is None else ws
     err = lib.ellc_gn_step(
-        *[_ptr(t) for t in (*planes, pose_in, *st, T, partials, tickets)],
+        *[_ptr(t) for t in (*planes, pose_in, *st, T, partials, tickets,
+                            live)],
         V, h, w, ch, int(y_offset), partials.shape[-2], mode, int(first),
-        *intr, cfg.camera_pixel_noise_2, cfg.huber_d / 2.0,
+        int(it), *intr, cfg.camera_pixel_noise_2, cfg.huber_d / 2.0,
         *cfg.termination_weights, ctypes.c_void_p(stream))
     _raise_on(err, "gn_step")
 
@@ -334,12 +342,14 @@ def _launch_step(lib: ctypes.CDLL, mode: int, first: bool,
 def _launch_cluster(lib: ctypes.CDLL, kf: alignment.KeyframeLevel,
                     cur: alignment.CurrentLevel, pose0: torch.Tensor,
                     st: GNState, intr: Tuple[float, float, float, float],
-                    cfg: ELLCConfig, num_iters: int, stream: int) -> None:
+                    cfg: ELLCConfig, num_iters: int, stream: int,
+                    live: Optional[torch.Tensor] = None) -> None:
     """One launch of ``ellc_gn_level_cluster`` on ``stream``: the level's
-    ``num_iters`` iterations from ``pose0``, written to ``st``."""
+    ``num_iters`` iterations from ``pose0``, written to ``st``, and their
+    live videos counted into ``live`` (None: not counted)."""
     V, h, w, ch = _shapes(kf, cur, pose0)
     err = lib.ellc_gn_level_cluster(
-        *[_ptr(t) for t in (*kf, *cur, pose0, *st)],
+        *[_ptr(t) for t in (*kf, *cur, pose0, *st, live)],
         V, h, w, ch, int(num_iters), *intr, cfg.camera_pixel_noise_2,
         cfg.huber_d / 2.0, *cfg.termination_weights, ctypes.c_void_p(stream))
     _raise_on(err, "gn_level_cluster")
@@ -349,22 +359,26 @@ def level_launches(lib: ctypes.CDLL, ws: Workspace,
                    kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
                    pose0: torch.Tensor,
                    intr: Tuple[float, float, float, float], cfg: ELLCConfig,
-                   num_iters: int, kernel: str, stream: int) -> GNState:
+                   num_iters: int, kernel: str, stream: int,
+                   live: Optional[torch.Tensor] = None) -> GNState:
     """A level's ``num_iters`` (>= 1) iterations from ``pose0`` as
     ``kernel`` launches of ``lib`` on ``stream`` (one of gn_level_cluster,
     or one of gn_step an iteration), on contiguous planes; returns the new
-    state."""
+    state.  ``live``: a contiguous int64 row of at least ``num_iters``
+    entries, where entry i counts the videos live at iteration i's start
+    (None: not counted)."""
     st = empty_state(pose0)
     if kernel == "gn_level_cluster":
         _launch_cluster(lib, kf, cur, pose0, st, intr, cfg, num_iters,
-                        stream)
+                        stream, live)
         return st
     h, w = kf.image.shape[-2:]
     partials = torch.empty(pose0.shape[:-1] + (blocks(h, w), SUMS),
                            dtype=torch.float32, device=pose0.device)
     for it in range(num_iters):
         _launch_step(lib, _ITERATE, it == 0, pose0 if it == 0 else st.pose,
-                     st, partials, cfg, stream, kf, cur, intr, ws=ws)
+                     st, partials, cfg, stream, kf, cur, intr, ws=ws,
+                     live=live, it=it)
     return st
 
 
@@ -480,10 +494,12 @@ def iterate(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
 
 def run_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
               pose0: torch.Tensor, intr: Tuple[float, float, float, float],
-              cfg: ELLCConfig, num_iters: int, kernel: str) -> GNState:
+              cfg: ELLCConfig, num_iters: int, kernel: str,
+              live: Optional[torch.Tensor] = None) -> GNState:
     """A level's ``num_iters`` (>= 1) iterations from ``pose0`` with
-    ``kernel`` (``gn_level_cluster`` or ``gn_step``) at any level; on the
-    CPU the plain :func:`iterate`."""
+    ``kernel`` (``gn_level_cluster`` or ``gn_step``) at any level, the
+    live iterations counted into ``live`` (a row of ``k1_live``'s table,
+    or None); on the CPU the plain :func:`iterate`."""
     if pose0.device.type == "cpu":
         return iterate(kf, cur, pose0, intr, cfg, num_iters)
     if kernel not in KERNELS:
@@ -494,11 +510,17 @@ def run_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
     named = dict(zip(("kf_image", "kf_depth", "kf_var"), kf))
     named.update(zip(("cur_image", "cur_gradx", "cur_grady"), cur))
     named["pose0"] = pose0
-    _check(named, {})
+    if live is not None:
+        if live.dim() != 1 or live.shape[0] < num_iters:
+            raise ValueError(f"live must be a row of at least {num_iters} "
+                             f"counts, not {tuple(live.shape)}")
+        named["live"] = live
+    _check(named, {"live": torch.int64})
     V = math.prod(pose0.shape[:-1])
     with torch.cuda.device(pose0.device):
         st = level_launches(_library(), workspace(pose0.device, V), kf, cur,
-                            pose0, intr, cfg, num_iters, kernel, _stream())
+                            pose0, intr, cfg, num_iters, kernel, _stream(),
+                            live)
     _counts[kernel] += 1 if kernel == "gn_level_cluster" else num_iters
     return st
 
@@ -508,7 +530,8 @@ def gn_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
              num_iters: int):
     """``alignment.gn_level`` on the card: one gn_level_cluster launch for
     a template of at most :data:`CLUSTER_MAX_PIXELS` pixels, else
-    ``num_iters`` gn_step launches.  Returns (pose, weighted_pose,
+    ``num_iters`` gn_step launches, the live iterations counted into the
+    level's row of ``profiling.k1_live``.  Returns (pose, weighted_pose,
     iters_used, (energy, valid_count)), as the plain version does."""
     if pose0.device.type == "cpu":
         return alignment.gn_level(kf, cur, pose0, level, cfg, num_iters)
@@ -519,6 +542,8 @@ def gn_level(kf: alignment.KeyframeLevel, cur: alignment.CurrentLevel,
                 torch.zeros(lead, dtype=torch.int32, device=pose0.device),
                 (zero, zero.clone()))
     h, w = kf.image.shape[-2:]
+    live = profiling.k1_live(pose0.device, cfg.num_levels,
+                             max(num_iters, *cfg.max_iters))[level]
     st = run_level(kf, cur, pose0, cfg.level_intrinsics(level), cfg,
-                   num_iters, kernel_for(h, w))
+                   num_iters, kernel_for(h, w), live)
     return st.pose, st.wp_last, st.iters, (st.energy, st.valid)

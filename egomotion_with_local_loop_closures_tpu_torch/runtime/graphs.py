@@ -49,6 +49,14 @@ eager path.
 
 A failed capture or replay raises: nothing falls back to running the step
 eagerly on the card.
+
+While a profiler records, :func:`run_step` names its phases on the
+trace's clock (``utils/profiling.span``): ``ellc.graph.capture``,
+``ellc.graph.copy_in``, ``ellc.graph.replay`` and ``ellc.graph.clone_out``,
+so that the trace attributes the copies in and out, and the graph's own
+nodes, to them.  It counts its replays and captures
+(``profiling.counters()``), and :func:`stats` gives each graph's bytes
+copied in and cloned out a replay.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import torch
 from egomotion_with_local_loop_closures_tpu_torch.ops import (
     depth_refresh_kernel, gn_kernel, propagate_kernel, pyramid_kernel,
     reg_kernel, se3_kernel, stereo_kernel)
+from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
 
 # the modules of the hand-written kernels whose launches a graph counts,
 # by the name of the kernel: K3, K1, K2, propagate's two and K4's three
@@ -145,6 +154,8 @@ class Graph:
     instantiate_s: float
     nodes: Dict[str, int]       # graph nodes by type
     kernel_names: Dict[str, int]  # kernel nodes by function name
+    copy_in_bytes: int          # a replay's copies into static_in
+    clone_out_bytes: int        # and its clones of static_out
 
 
 # (step function, key) -> its graph; (device, video axis) -> pool handle
@@ -257,11 +268,18 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
     ids = {id(t): i for i, t in enumerate(static_in)}
     through = {j: ids[id(t)] for j, t in enumerate(out_leaves)
                if id(t) in ids}
+    cloned = {id(t): t for j, t in enumerate(out_leaves) if j not in through}
     return Graph(graph=graph, static_in=static_in, static_out=out_leaves,
                  out_spec=out_spec, through=through, kernel_nodes=ours,
                  warmup=warm, pool=pool,
                  lead=lead, capture_s=t1 - t0, instantiate_s=t2 - t1,
-                 nodes=nodes, kernel_names=names)
+                 nodes=nodes, kernel_names=names,
+                 copy_in_bytes=_nbytes(static_in),
+                 clone_out_bytes=_nbytes(cloned.values()))
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
@@ -285,23 +303,30 @@ def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
             def body(state, image, init_rotation):
                 return fn(state, image, cfg, replay, init_rotation)
 
-            g = _graphs[key] = _capture(body, leaves, spec,
-                                        _pools[(device, lead)], lead, device)
-        for dst, src in zip(g.static_in, leaves):
-            dst.copy_(src)
-        g.graph.replay()
+            with profiling.span("ellc.graph.capture"):
+                g = _graphs[key] = _capture(body, leaves, spec,
+                                            _pools[(device, lead)], lead,
+                                            device)
+            profiling.count("graph_captures")
+        with profiling.span("ellc.graph.copy_in"):
+            for dst, src in zip(g.static_in, leaves):
+                dst.copy_(src)
+        with profiling.span("ellc.graph.replay"):
+            g.graph.replay()
+    profiling.count("graph_replays")
     for label, mod in _KERNELS.items():
         mod.add_launches(g.kernel_nodes[label])
-    clones: Dict[int, torch.Tensor] = {}
-    out = []
-    for j, t in enumerate(g.static_out):
-        if j in g.through:
-            out.append(leaves[g.through[j]])
-        else:
-            if id(t) not in clones:
-                clones[id(t)] = t.clone()
-            out.append(clones[id(t)])
-    return tree_unflatten(g.out_spec, out)
+    with profiling.span("ellc.graph.clone_out"):
+        clones: Dict[int, torch.Tensor] = {}
+        out = []
+        for j, t in enumerate(g.static_out):
+            if j in g.through:
+                out.append(leaves[g.through[j]])
+            else:
+                if id(t) not in clones:
+                    clones[id(t)] = t.clone()
+                out.append(clones[id(t)])
+        return tree_unflatten(g.out_spec, out)
 
 
 def release(lead: Optional[Tuple[int, ...]] = None) -> None:
@@ -347,7 +372,7 @@ def stats() -> List[dict]:
     """One line per captured graph: the step, its key's config, replay,
     rotation and video axis, capture and instantiate seconds, nodes by
     type, the hand-written kernels' launches a replay and of the warm-up,
-    and the pool's bytes."""
+    the bytes a replay copies in and clones out, and the pool's bytes."""
     rows = []
     for key, g in _graphs.items():
         fn, (cfg, replay_, rot, _, sig, device) = key
@@ -360,6 +385,7 @@ def stats() -> List[dict]:
                             for label in _KERNELS},
                          **{f"warmup_{label}": dict(g.warmup[label])
                             for label in _KERNELS},
-                         pool=g.pool,
+                         copy_in_bytes=g.copy_in_bytes,
+                         clone_out_bytes=g.clone_out_bytes, pool=g.pool,
                          pool_bytes=pool_bytes(g.pool), cfg=cfg))
     return rows

@@ -49,6 +49,12 @@ Every step also advances V videos at once when its state carries a
 leading video axis (every tensor (V, ...), built by
 ``parallel.sharded.batched_init``) and its frames are (V, H, W): the same
 calls and launches as one video, each on V videos' data.
+
+While a profiler records, :func:`init_pipeline`, :func:`process_interval`
+and each frame step mark their span on the trace's clock
+(``utils/profiling.span``): ``ellc.init``, ``ellc.interval``, and
+``ellc.step.track_refine`` or ``ellc.step.keyframe`` around a step and its
+graph's phases (``runtime/graphs.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
 from egomotion_with_local_loop_closures_tpu_torch.ops import reg_kernel
 from egomotion_with_local_loop_closures_tpu_torch.runtime import graphs
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
+from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,15 +223,17 @@ def init_pipeline(first_image, cfg: ELLCConfig, device,
 
     Given V first frames (V, H, W) and a sequence of V generators (or
     None), it initializes V videos at once (``parallel.sharded``)."""
-    device = torch.device(device)
-    image = _image(first_image, device)
-    lead = image.shape[:-2]
-    levels = pyramid.build_levels(image, cfg.num_levels, max_grad=True)
-    st = dstate.initialize_random(generator, levels.maxgrad, cfg)
-    st = reg_kernel.regularize(st, cfg)
-    kf, st = make_keyframe(image, st, torch.zeros(lead + (6,), device=device),
-                           torch.ones(lead, device=device), cfg, levels)
-    return _fresh_state(kf, st)
+    with profiling.span("ellc.init"):
+        device = torch.device(device)
+        image = _image(first_image, device)
+        lead = image.shape[:-2]
+        levels = pyramid.build_levels(image, cfg.num_levels, max_grad=True)
+        st = dstate.initialize_random(generator, levels.maxgrad, cfg)
+        st = reg_kernel.regularize(st, cfg)
+        kf, st = make_keyframe(image, st,
+                               torch.zeros(lead + (6,), device=device),
+                               torch.ones(lead, device=device), cfg, levels)
+        return _fresh_state(kf, st)
 
 
 def init_from_depth(first_image, depth, var, world_pose, cfg: ELLCConfig,
@@ -285,17 +294,18 @@ def finalize_snapshot(state: PipelineState) -> KeyframeSnapshot:
                             depth_state=state.depth)
 
 
-def _graphed(step, state: PipelineState, image, cfg: ELLCConfig,
-             replay: bool, init_rotation):
+def _graphed(step, name: str, state: PipelineState, image,
+             cfg: ELLCConfig, replay: bool, init_rotation):
     """``step`` on a CUDA state through its captured graph, on a CPU
-    state eagerly."""
-    image = _image(image, state.device)
-    if init_rotation is not None:
-        init_rotation = _image(init_rotation, state.device)
-    if state.device.type == "cuda":
-        return graphs.run_step(step, state, image, cfg, replay,
-                               init_rotation)
-    return step(state, image, cfg, replay, init_rotation)
+    state eagerly, in the span ``name``."""
+    with profiling.span(name):
+        image = _image(image, state.device)
+        if init_rotation is not None:
+            init_rotation = _image(init_rotation, state.device)
+        if state.device.type == "cuda":
+            return graphs.run_step(step, state, image, cfg, replay,
+                                   init_rotation)
+        return step(state, image, cfg, replay, init_rotation)
 
 
 def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
@@ -304,8 +314,8 @@ def track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
     """One non-keyframe frame: track, then refine the KF depth map
     (main.cpp:330, 499-502).  A replay of its captured graph on a CUDA
     state."""
-    return _graphed(_track_refine_step, state, image, cfg, replay,
-                    init_rotation)
+    return _graphed(_track_refine_step, "ellc.step.track_refine", state,
+                    image, cfg, replay, init_rotation)
 
 
 def _track_refine_step(state: PipelineState, image, cfg: ELLCConfig,
@@ -342,8 +352,8 @@ def keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
     loop window on, also returns the old keyframe's snapshot, taken after
     its final regularization with this frame's weights accumulated (else
     None).  A replay of its captured graph on a CUDA state."""
-    return _graphed(_keyframe_step, state, image, cfg, replay,
-                    init_rotation)
+    return _graphed(_keyframe_step, "ellc.step.keyframe", state, image,
+                    cfg, replay, init_rotation)
 
 
 def _keyframe_step(state: PipelineState, image, cfg: ELLCConfig,
@@ -414,16 +424,17 @@ def process_interval(state: PipelineState, images, cfg: ELLCConfig,
     state, the stacked per-frame outputs and the old keyframe's snapshot
     (None without the loop window).  On a CUDA state every step replays
     its captured graph."""
-    rots = ([None] * len(images) if init_rotations is None
-            else _image(init_rotations, state.device))
-    outs = []
-    for img, rot in zip(images[:-1], rots[:-1]):
-        state, out = track_refine_step(state, img, cfg, replay, rot)
+    with profiling.span("ellc.interval"):
+        rots = ([None] * len(images) if init_rotations is None
+                else _image(init_rotations, state.device))
+        outs = []
+        for img, rot in zip(images[:-1], rots[:-1]):
+            state, out = track_refine_step(state, img, cfg, replay, rot)
+            outs.append(out)
+        state, out, snapshot = keyframe_step(state, images[-1], cfg, replay,
+                                             rots[-1])
         outs.append(out)
-    state, out, snapshot = keyframe_step(state, images[-1], cfg, replay,
-                                         rots[-1])
-    outs.append(out)
-    return state, stack_outputs(outs), snapshot
+        return state, stack_outputs(outs), snapshot
 
 
 def process_intervals(state: PipelineState, images, cfg: ELLCConfig,

@@ -47,6 +47,7 @@ from egomotion_with_local_loop_closures_tpu_torch.geom import (camera, lie,
                                                               linear)
 from egomotion_with_local_loop_closures_tpu_torch.image import (interp,
                                                                 pyramid)
+from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
 
 
 class KeyframeLevel(NamedTuple):
@@ -342,7 +343,9 @@ def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,
     convergence or failed step never stops another.  On a CUDA tensor the
     level runs in K1's kernels (``ops/gn_kernel.py``: one cluster launch
     for a small level, one launch an iteration for a larger one); on the
-    CPU it is the plain twin below."""
+    CPU it is the plain twin below.  Both count the videos live at the
+    start of each iteration into the level's row of
+    ``utils/profiling``'s ``k1_live`` table."""
     if pose0.device.type != "cpu":
         # imported here: ops.gn_kernel imports this module
         from egomotion_with_local_loop_closures_tpu_torch.ops import (
@@ -358,7 +361,10 @@ def gn_level(kf: KeyframeLevel, cur: CurrentLevel, pose0: torch.Tensor,
     iters = torch.zeros(lead, dtype=torch.int32, device=dev)
     energy = torch.zeros(lead, dtype=pose0.dtype, device=dev)
     valid = torch.zeros(lead, dtype=pose0.dtype, device=dev)
-    for _ in range(num_iters):
+    live = profiling.k1_live(dev, cfg.num_levels,
+                             max(num_iters, *cfg.max_iters))[level]
+    for i in range(num_iters):
+        live[i].add_(torch.sum(~done))
         Hmat, g, e, n = _gn_quantities(kf, cur, pose, intr, cfg)
         pose, done, wp_last, iters, energy, valid = _gn_update(
             Hmat, g, e, n, pose, done, wp_last, iters, energy, valid, term_w)

@@ -23,8 +23,8 @@ A thread that returns leaves every group it belongs to, as an exited CUDA
 thread no longer holds a barrier back.  ``__shared__`` variables are
 function statics, one copy for all blocks: a cluster kernel keeps its
 shared memory in its dynamic buffer (``extern __shared__``), which the
-shim gives each block of a cluster.  ``atomicAdd`` on an int is a
-``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence,
+shim gives each block of a cluster.  ``atomicAdd`` on an int or an
+unsigned long long is a ``std::atomic_ref``, ``__threadfence`` a sequentially consistent fence,
 ``__ldcg`` a plain load, ``__popc`` the compiler's builtin, and
 ``cudaFuncSetAttribute`` does nothing: one OS thread runs all fibers.
 ``atomicExch`` on an int is a ``std::atomic_ref`` exchange and
@@ -271,6 +271,9 @@ template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 inline int atomicExch(int* p, int v) { return std::atomic_ref<int>(*p).exchange(v); }
 namespace cooperative_groups {
 struct cluster_group {

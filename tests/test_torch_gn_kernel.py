@@ -14,7 +14,12 @@ variance; video v of a batch has its own keyframe pose, holes and motion.
   and ``align`` (1e-5 per twist component).
 - The wrappers on CPU tensors run the plain version and launch nothing;
   the module imports without nvcc; the source sums no float with
-  atomics, its one atomic an integer ticket a video.
+  atomics, its atomics an integer ticket a video and the two live
+  counts.
+- The plain twin counts K1's live iterations (``profiling.k1_live``):
+  over an align of three videos, each level's row holds at iteration i
+  the videos whose level ran more than i updates (every video at
+  iteration 0).
 - The CUDA source built for the CPU with g++ (``tests/cuda_emulation.py``:
   a fiber per CUDA thread, shuffles and cluster barriers emulated; built
   with a cluster of 4 blocks of 128 threads, against the card's 8 of
@@ -25,13 +30,14 @@ variance; video v of a batch has its own keyframe pose, holes and motion.
   pose (the pose within 1e-5 per component, iters and freeze flags
   equal), whole levels of both kernels at every level, a NaN video and
   videos that freeze mid-level, every video of a batch bit-equal to its
-  own call, and a repeated call bit-equal to the first (the tickets
-  reset).
+  own call, a repeated call bit-equal to the first (the tickets
+  reset), and both kernels' live counts equal to the twin's.
 - On a card (``-m cuda``; run there with ``python -m pytest
   tests/test_torch_gn_kernel.py -m cuda --noconftest``, since that
   machine has no jax: this file imports the JAX package only in a
   fixture) the same checks on the kernels themselves, and the launches
-  a level: one gn_level_cluster launch, or one gn_step an iteration.
+  a level: one gn_level_cluster launch, or one gn_step an iteration;
+  the live counts of ``gn_level`` on the card equal the twin's table.
 """
 
 import ctypes
@@ -50,7 +56,8 @@ from egomotion_with_local_loop_closures_tpu_torch.image import pyramid
 from egomotion_with_local_loop_closures_tpu_torch.ops import (
     gn_kernel, gn_reference)
 from egomotion_with_local_loop_closures_tpu_torch.track import alignment
-from egomotion_with_local_loop_closures_tpu_torch.utils import synthetic
+from egomotion_with_local_loop_closures_tpu_torch.utils import (
+    profiling, synthetic)
 
 torch.set_num_threads(1)
 
@@ -236,18 +243,48 @@ def test_level_matches_jax_gn_level(videos, jax_mods):
     assert float(et) == pytest.approx(float(ej), rel=1e-4)
 
 
+def _recount(iters, n_iters):
+    """The videos live at the start of each of a level's ``n_iters``
+    iterations, from the updates each applied (a live iteration applies
+    one, a frozen video none)."""
+    return [int((iters > i).sum()) for i in range(n_iters)]
+
+
+def test_plain_align_counts_live_iterations(videos, monkeypatch):
+    """An align of three videos on the CPU, a NaN video among them (it
+    freezes after its first iteration at every level): each level's row
+    of ``k1_live`` is the recount of ``iters_used``."""
+    monkeypatch.setattr(profiling, "_k1_live", {})
+    kf = [levels(videos, lv)[0] for lv in range(CFG.num_levels)]
+    cur = [levels(videos, lv)[1] for lv in range(CFG.num_levels)]
+    pose0 = torch.as_tensor(start_poses(3))
+    pose0[1] = float("nan")
+    _, diag = alignment.align(tuple(kf), tuple(cur), pose0, CFG)
+    table = profiling.counters()["k1_live"]["cpu"]
+    for lv, n_iters in enumerate(CFG.max_iters):
+        assert table[lv][0] == 3
+        assert table[lv][:n_iters] == _recount(diag.iters_used[:, lv],
+                                               n_iters)
+        assert not any(table[lv][n_iters:])
+    assert any(row[1] == 2 for row in table)
+
+
 # --- the wrappers on the CPU ---
 
 def test_module_imports_without_nvcc_and_source_has_no_atomics():
     """The module imported above without building anything; the kernels
-    sum no float with atomics: the one atomic of the source is gn_step's
-    integer ticket, one counter a video, reset by the block that takes
-    the last one."""
+    sum no float with atomics: the atomics of the source are integer
+    ones, gn_step's ticket, one counter a video, reset by the block that
+    takes the last one, and each kernel's count of a live iteration into
+    the int64 row of ``k1_live``."""
     assert gn_kernel._lib is None
     src = gn_kernel.SOURCE.read_text()
     code = re.sub(r"//[^\n]*", "", src)
-    assert re.findall(r"atomic\w*", code) == ["atomicAdd"]
+    assert re.findall(r"atomic\w*", code) == ["atomicAdd"] * 3
     assert "atomicAdd(&a.tickets[v], 1)" in code
+    assert "atomicAdd(a.live + a.iter, 1ull)" in code
+    assert "atomicAdd(a.live + it, 1ull)" in code
+    assert "unsigned long long* live;" in code
     assert "a.tickets[v] = 0;" in code
     assert code.count("__global__") == 2
     assert gn_kernel.wrapper_of(
@@ -336,12 +373,12 @@ def emulated(tmp_path_factory):
                                partials, cfg, 0)
         return st
 
-    def level(kf, cur, pose0, level_, n_iters, kernel, ws=None):
+    def level(kf, cur, pose0, level_, n_iters, kernel, ws=None, live=None):
         if ws is None:
             ws = gn_kernel.make_workspace(math.prod(pose0.shape[:-1]), "cpu")
         return gn_kernel.level_launches(lib, ws, kf, cur, pose0,
                                         CFG.level_intrinsics(level_), CFG,
-                                        n_iters, kernel, 0)
+                                        n_iters, kernel, 0, live)
     return lin, fin, level
 
 
@@ -561,6 +598,34 @@ def test_emulated_videos_equal_their_own_calls_bit_for_bit(videos, emulated):
                     assert_bits(a[0], b[v])
 
 
+@pytest.mark.parametrize("kernel", ["gn_level_cluster", "gn_step"])
+def test_emulated_live_counts_equal_the_twin(videos, emulated, kernel,
+                                              monkeypatch):
+    """Level 1 of a NaN video, a video that converges mid-level and one
+    that starts at its solution: the kernel counts into a row of its own
+    what the twin counts into its table's row, and no entry past the
+    level's iterations."""
+    monkeypatch.setattr(profiling, "_k1_live", {})
+    _, _, run = emulated
+    level, n_iters = 1, CFG.max_iters[1]
+    kf, cur = levels(videos, level)
+    pose0 = torch.as_tensor(start_poses(3))
+    pose0[0] = float("nan")
+    pose0[2] = alignment.gn_level(*levels(videos[2], level), pose0[2],
+                                  level, CFG, n_iters)[0]
+    profiling.reset_counters()
+    iters = alignment.gn_level(kf, cur, pose0, level, CFG, n_iters)[2]
+    want = profiling.counters()["k1_live"]["cpu"][level]
+    assert want[:n_iters] == _recount(iters, n_iters)
+    # the NaN video and the solved one freeze after one iteration, the
+    # other video mid-level
+    assert want[:2] == [3, 1] and want[n_iters - 1] == 0
+    live = torch.zeros(len(want), dtype=torch.int64)
+    st = run(kf, cur, pose0, level, n_iters, kernel, live=live)
+    assert torch.equal(st.iters, iters)
+    assert live.tolist() == want
+
+
 # --- on the card ---
 
 @pytest.fixture
@@ -662,3 +727,26 @@ def test_cuda_level_two_launches_an_iteration_and_videos_bit_equal(
     kernel = gn_kernel.kernel_for(h, w)
     assert gn_kernel.launches[kernel] == (
         1 if kernel == "gn_level_cluster" else n_iters)
+
+
+@pytest.mark.cuda
+def test_cuda_live_counts_equal_the_twin(videos, cuda_device, monkeypatch):
+    """An align of the three videos and a NaN one on the card and on the
+    CPU from the same inputs: the kernels' table equals the twin's, and
+    each row the recount of the card's own updates."""
+    monkeypatch.setattr(profiling, "_k1_live", {})
+    vids = videos + [videos[1]]
+    pose0 = torch.as_tensor(np.concatenate([start_poses(3), np.full(
+        (1, 6), np.nan, np.float32)]))
+    got = {}
+    for dev in ("cpu", cuda_device):
+        kf = tuple(levels(vids, lv, dev)[0] for lv in range(CFG.num_levels))
+        cur = tuple(levels(vids, lv, dev)[1] for lv in range(CFG.num_levels))
+        _, diag = alignment.align(kf, cur, pose0.to(dev), CFG)
+        got[str(dev)] = diag.iters_used.cpu()
+    table = profiling.counters()["k1_live"]
+    card = table[str(torch.device("cuda", torch.cuda.current_device()))]
+    assert card == table["cpu"]
+    for lv, n_iters in enumerate(CFG.max_iters):
+        assert card[lv][0] == 4
+        assert card[lv][:n_iters] == _recount(got["cuda"][:, lv], n_iters)

@@ -37,7 +37,11 @@ equal to NaN), the keyframe step too (``propagate`` merges in a fixed
 order, one launch of each merge kernel), and K3's and K1's launch counts
 of a replay equal
 the eager step's (K1: one launch of each of its kernels per GN iteration,
-the sum of the level iteration counts).
+the sum of the level iteration counts).  Two passes of one interval:
+``graph_replays`` counts every ``run_step`` call, the second pass
+captures nothing, each graph's bytes copied in are its inputs' bytes, and
+``k1_live`` counts every align at each level's first iteration: the
+replays' and the captures' eager warm-ups'.
 """
 
 import dataclasses
@@ -57,6 +61,7 @@ from egomotion_with_local_loop_closures_tpu_torch.ops import (
 from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
 from egomotion_with_local_loop_closures_tpu_torch.runtime import (
     graphs, io as ellc_io, pipeline, runner)
+from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -340,4 +345,34 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
     kf_g = pipeline.keyframe_step(graphed, image, cfg, replay, rot)
     assert propagate_kernel.launches == one_each
     _assert_bits(kf_g, kf_e)
+    graphs.release()
+
+
+@pytest.mark.cuda
+def test_graph_counters_on_the_card(cuda_device, frames, monkeypatch):
+    monkeypatch.setattr(profiling, "_k1_live", {})
+    graphs.release()
+    profiling.reset_counters()
+    state = _card(pipeline.init_pipeline(frames[0], CFG, "cpu"),
+                  cuda_device)
+    images = torch.as_tensor(frames[1:1 + CFG.keyframe_interval],
+                             device=cuda_device)
+    K = len(images)
+    pipeline.process_interval(state, images, CFG)
+    first = profiling.counters()
+    assert first["graph_replays"] == K and first["graph_captures"] == 2
+    pipeline.process_interval(state, images, CFG)
+    second = profiling.counters()
+    assert second["graph_replays"] == 2 * K
+    assert second["graph_captures"] == 2
+    rows = graphs.stats()
+    assert len(rows) == 2
+    inputs = sum(t.numel() * t.element_size()
+                 for t in _leaves((state, images[0])))
+    for row in rows:
+        assert row["copy_in_bytes"] == inputs
+        assert row["clone_out_bytes"] > 0
+    # every replay's aligns and the two captures' eager warm-ups
+    table = second["k1_live"][str(images.device)]
+    assert [row[0] for row in table] == [2 * K + 2] * CFG.num_levels
     graphs.release()

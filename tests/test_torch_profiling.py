@@ -1,28 +1,33 @@
 """The port's timing and tracing utilities (utils/profiling.py), modelled
-on the JAX package's tests/test_profiling.py: the stopwatch, stage timer
-and meters behave as the JAX package's do, the stage report is the same
-text for the same statistics, and the trace writes a Chrome trace.
-Times are host wall-clock and compared only by their floor (the 10 ms
-sleep)."""
+on the JAX package's tests/test_profiling.py: the stage timer behaves as
+the JAX package's does, the stage report is the same text for the same
+statistics, and the trace writes a Chrome trace.
 
+The program's own spans and counters: ``span`` is one shared null
+context with no profiler recording; under a CPU ``torch.profiler`` a
+``process_interval`` of two videos (from ``sharded.batched_init``)
+writes ``ellc.init``, ``ellc.interval`` and one ``ellc.step.*`` range a
+step inside its interval, and the plain path counts every video-align
+at iteration 0 of every level of ``k1_live``; the table grows without
+losing what a smaller one counted, and ``reset_counters`` zeroes it.
+"""
+
+import contextlib
 import json
-import time
 
 import numpy as np
+import pytest
 import torch
 
 from egomotion_with_local_loop_closures_tpu.utils import profiling as jprof
 
-from egomotion_with_local_loop_closures_tpu_torch.utils import profiling
+from egomotion_with_local_loop_closures_tpu_torch.config import TEST_CONFIG
+from egomotion_with_local_loop_closures_tpu_torch.parallel import sharded
+from egomotion_with_local_loop_closures_tpu_torch.runtime import pipeline
+from egomotion_with_local_loop_closures_tpu_torch.utils import (
+    profiling, synthetic)
 
 torch.set_num_threads(1)
-
-
-def test_stopwatch():
-    sw = profiling.Stopwatch()
-    sw.start()
-    time.sleep(0.01)
-    assert sw.stop_ms() >= 9.0
 
 
 def test_stage_timer_aggregates_syncs_and_skips_non_tensors():
@@ -52,19 +57,6 @@ def test_stage_report_equals_the_jax_package():
             b.count, b.total_s, b.min_s, b.max_s, b.mean_s)
 
 
-def test_meters():
-    m = profiling.Meters("cpu")
-    m._t0 -= 100.0          # 100 s ago: two reads of the rate agree
-    m.frames += 16
-    m.keyframes += 2
-    d = m.as_dict()
-    ref = jprof.Meters()
-    assert set(d) == set(ref.as_dict())
-    assert d["frames"] == 16 and d["keyframes"] == 2 and d["fps"] > 0
-    # one device on the CPU: per chip is the whole rate
-    assert np.isclose(d["fps_per_chip"], d["fps"], rtol=1e-4)
-
-
 def test_trace_noop():
     with profiling.trace(None) as prof:
         assert prof is None
@@ -92,3 +84,96 @@ def test_trace_device_time_sums_kernels_copies_and_sets(tmp_path):
     path = tmp_path / "t.json"
     path.write_text(json.dumps({"traceEvents": events}))
     assert profiling.trace_device_time(str(path)) == (2.0, 3)
+
+
+def test_span_is_one_null_context_without_a_profiler():
+    a, b = profiling.span("ellc.a"), profiling.span("ellc.b")
+    assert a is b and isinstance(a, contextlib.nullcontext)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert isinstance(profiling.span("ellc.a"),
+                          torch.profiler.record_function)
+
+
+# two videos of TEST_CONFIG's room at half size, three frames each
+CFG = TEST_CONFIG.replace(rows=48, cols=64, fx=TEST_CONFIG.fx / 2,
+                          fy=TEST_CONFIG.fy / 2, cx=TEST_CONFIG.cx / 2,
+                          cy=TEST_CONFIG.cy / 2)
+
+
+@pytest.fixture(scope="module")
+def traced_interval(tmp_path_factory):
+    """The Chrome trace's ranges (name, start, end) and the counters of a
+    ``batched_init`` and a ``process_interval`` of two videos (a
+    track_refine step and a keyframe step) under a CPU profiler."""
+    scene = synthetic.make_room_scene(seed=0)
+    steps = torch.as_tensor(np.asarray(
+        [0.0, 0.002, -0.001, 0.004, 0.002, 0.006], np.float32))
+    poses = torch.stack([steps * (f + v) for v in range(2)
+                         for f in range(3)]).reshape(2, 3, 6)
+    frames, _ = synthetic.render(scene, poses, CFG.rows, CFG.cols,
+                                 *CFG.level_intrinsics(0))
+    frames = torch.round(frames)
+    path = tmp_path_factory.mktemp("trace") / "trace.json"
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        state = sharded.batched_init(frames[:, 0], CFG, "cpu")
+        pipeline.process_interval(state, frames[:, 1:].transpose(0, 1), CFG)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e["name"].startswith("ellc.")]
+    return ranges, profiling.counters()
+
+
+def test_process_interval_writes_nested_ranges(traced_interval):
+    ranges, _ = traced_interval
+    names = sorted(n for n, _, _ in ranges)
+    assert names == ["ellc.init", "ellc.interval", "ellc.step.keyframe",
+                     "ellc.step.track_refine"]
+    at = {n: (a, b) for n, a, b in ranges}
+    ia, ib = at["ellc.interval"]
+    ta, tb = at["ellc.step.track_refine"]
+    ka, kb = at["ellc.step.keyframe"]
+    assert ia <= ta < tb <= ka < kb <= ib
+    assert at["ellc.init"][1] <= ia
+
+
+def test_plain_path_counts_every_video_align(traced_interval):
+    """Two videos, two steps: four aligns, each live at every level's
+    first iteration; no graph ran on the CPU."""
+    _, counters = traced_interval
+    table = counters["k1_live"]["cpu"]
+    assert len(table) == CFG.num_levels
+    assert len(table[0]) == max(CFG.max_iters)
+    assert [row[0] for row in table] == [4] * CFG.num_levels
+    for row, n in zip(table, CFG.max_iters):
+        assert all(a >= b for a, b in zip(row, row[1:]))
+        assert not any(row[n:])
+    assert counters["graph_replays"] == counters["graph_captures"] == 0
+
+
+def test_k1_live_grows_keeps_its_counts_and_resets(monkeypatch):
+    monkeypatch.setattr(profiling, "_k1_live", {})
+    monkeypatch.setattr(profiling, "_host_counts",
+                        {"graph_replays": 0, "graph_captures": 0})
+    cpu = torch.device("cpu")
+    small = profiling.k1_live(cpu, 2, 3)
+    assert small.shape == (2, 3) and small.dtype == torch.int64
+    small[1, 2] += 5
+    big = profiling.k1_live(cpu, 4, 2)
+    assert big.shape == (4, 3) and profiling.k1_live(cpu, 1, 1) is big
+    big[1, 2] += 1
+    big[3, 0] += 2
+    profiling.count("graph_replays", 3)
+    got = profiling.counters()
+    assert got["k1_live"] == {"cpu": [[0, 0, 0], [0, 0, 6], [0, 0, 0],
+                                      [2, 0, 0]]}
+    assert got["graph_replays"] == 3 and got["graph_captures"] == 0
+    profiling.reset_counters()
+    got = profiling.counters()
+    assert got["k1_live"]["cpu"] == [[0] * 3] * 4
+    assert got["graph_replays"] == 0
