@@ -228,9 +228,10 @@ Phases, each announced on its own line:
    gaps of one more graphed loop over them (CUDA events around every
    step, no profiler) beside a track_refine graph replayed alone.
 
-Phases 4-13 run graphed: on the card every frame step of run_sequence,
-process_interval, run_ellc_lc and batched_process_interval replays its
-captured graph, and a replay counts the K3, K1, K2, propagate and K4 kernel nodes
+Phases 4-13 run graphed: on the card every frame step of run_sequence
+replays its step's captured graph, every interval of process_interval,
+run_ellc_lc and batched_process_interval its interval's, and a replay
+counts the K3, K1, K2, propagate and K4 kernel nodes
 of its graph (checked at capture against the wrapper calls the capture
 made);
 the eager warm-up before each capture counts apart, under
@@ -2472,7 +2473,7 @@ def main() -> int:
     t0 = time.perf_counter()
     predicted = {V: footprint.interval_footprint(V, cfg, dev)
                  for V in BATCH_SWEEP}
-    print(f"footprint probes (V = 1 and 2, one interval each) in "
+    print(f"footprint probes (V = 1 and 2, the first two intervals each) in "
           f"{time.perf_counter() - t0:.3f} s; "
           f"{footprint.check_fits(BATCH_VIDEOS, cfg, dev).describe()}")
 
@@ -3016,7 +3017,8 @@ def main() -> int:
     pools14 = {}
     for r in graphs.stats():
         pools14[r["pool"]] = r["pool_bytes"]
-        print(f"graph {r['step']} (lead {r['lead']}, replay {r['replay']}, "
+        print(f"graph {r['step']} ({r['frames']} frames, lead {r['lead']}, "
+              f"replay {r['replay']}, "
               f"rotation {r['init_rotation']}, window "
               f"{pipeline._needs_window(r['cfg'])}, "
               f"{r['cfg'].rows}x{r['cfg'].cols}): nodes {r['nodes']} "
@@ -3030,13 +3032,18 @@ def main() -> int:
               f"{r['capture_s']:.3f} s, instantiate "
               f"{r['instantiate_s']:.3f} s; pool "
               f"{r['pool_bytes'] / 2**20:.1f} MiB")
-        per_call = int(r["step"] == "keyframe_step")
+        # an interval's graph: its track_refine steps and one keyframe step
+        per_call = int(r["step"] != "track_refine_step")
+        tracks = r["frames"] - per_call
         check(r["propagate"] == dict.fromkeys(propagate_kernel.KERNELS,
                                               per_call),
-              f"graph {r['step']}: {per_call} node of each propagate "
-              f"kernel, found by name")
-        k4_want = k4_step(K4_KEYFRAME if per_call else K4_TRACK,
-                          True if r["init_rotation"] else None)
+              f"graph {r['step']} of {r['frames']} frames: {per_call} node "
+              f"of each propagate kernel, found by name")
+        per_steps = tuple(tracks * a + per_call * b
+                          for a, b in zip(K4_TRACK, K4_KEYFRAME))
+        k4_want = dict(zip(K4_NAMES, (
+            per_steps[0] + r["frames"] * bool(r["init_rotation"]),
+            *per_steps[1:])))
         check({**r["se3"], **r["pyramid"], **r["refresh"]} == k4_want,
               f"graph {r['step']}: K4's nodes {k4_want}, found by name")
         if r["step"] == "track_refine_step" and not r["replay"] and not \

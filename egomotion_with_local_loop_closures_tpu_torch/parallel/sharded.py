@@ -12,11 +12,12 @@ carries an explicit leading video axis V, and the pipeline's own modules
 take it: one batched interval makes the same calls, and the same kernel
 launches, as one video's interval, each on V videos' data.  K3 (the depth
 regularization, ``ops/reg_kernel.py``) runs once per call for all V
-videos, on its grid's z axis.  On the card each frame step replays a CUDA
-graph captured for that V (``runtime/graphs.py``).  There is no loop over
-videos, no host read and no communication between videos: video ``v`` of
-a batched run is what ``pipeline`` gives for that video alone, up to the
-summation order of the card's batched reductions.
+videos, on its grid's z axis.  On the card each interval replays a CUDA
+graph captured for that V and frame count (``runtime/graphs.py``).
+There is no loop over videos, no host read and no communication between
+videos: video ``v`` of a batched run is what ``pipeline`` gives for that
+video alone, up to the summation order of the card's batched
+reductions.
 
 The JAX package's ``keys`` become one CPU ``torch.Generator`` per video
 (ignored under ``bootstrap_rng == "glibc"``, as in the single-video path)
@@ -120,8 +121,10 @@ def batched_process_interval(states: pipeline.PipelineState, images,
     if images.dim() != 4 or images.shape[0] != V:
         raise ValueError(f"images must be ({V}, K, H, W), not "
                          f"{tuple(images.shape)}")
-    frames = images.transpose(0, 1).contiguous().unbind(0)
-    states, outs, _ = pipeline.process_interval(states, frames, cfg)
+    # (K, V, H, W) as a view: on the card the copy into the interval
+    # graph's static input is the one copy of the frames
+    states, outs, _ = pipeline.process_interval(
+        states, images.transpose(0, 1), cfg)
     return states, outs
 
 

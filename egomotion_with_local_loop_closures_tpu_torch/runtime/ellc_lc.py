@@ -105,7 +105,7 @@ def _track_batch(state: pipeline.PipelineState, frames: List[np.ndarray],
                  ) -> Tuple[pipeline.PipelineState, BatchRecord]:
     """Track a whole batch interval by interval, starting from ``state``
     whose keyframe is frame ``start_frame_id``; ``frames`` excludes that
-    keyframe.  Every frame step replays its captured graph on a CUDA
+    keyframe.  Every interval replays its captured graph on a CUDA
     state, and the batch's poses are read back once, at its end, as the
     JAX package reads its batch dispatches.  A batch starting at frame 1
     tracks K-1 frames in its first interval, so keyframes land on

@@ -1,38 +1,54 @@
-"""Captured CUDA graphs of the frame steps: the port's counterpart of the
+"""Captured CUDA graphs of the pipeline: the port's counterpart of the
 JAX package's ``jax.jit`` over ``runtime/pipeline.py::process_interval``.
 
 The JAX package runs a keyframe interval as one compiled XLA program.  On
-CUDA the counterpart is a captured graph: a frame step's ~24k kernel
-launches are recorded once and replayed by one call, so the host no longer
-dispatches them one by one.  :func:`run_step` keeps a per-process cache of
-captured ``torch.cuda.CUDAGraph`` objects, one for each step function
-(``pipeline._track_refine_step``, ``pipeline._keyframe_step``) and key
-``(cfg, replay, init_rotation given, the state's structure, shapes and
-dtypes, device)``; the shapes carry the video axis of a batched state
-and H, W.  ``cfg`` decides the loop window (``_needs_window``) and the
-iteration counts, so it is part of the key as a whole.  All graphs of
-one device and video axis share one memory pool, whatever their key (the
-loop window's, the replay's and the plain steps of LC mode): a replay's
-outputs are cloned out before any other graph replays, so a later capture
-may reuse what an earlier one freed.
+CUDA the counterpart is a captured graph: a body's kernel launches are
+recorded once and replayed by one call, so the host no longer dispatches
+them one by one.  In GN mode a ``track_refine`` step holds 25 kernel
+nodes and a keyframe step 50 and a memset, so a whole interval of 8
+steps holds 232 kernel nodes, the stacking of its outputs included.  Two
+kinds of body are captured, through one path:
 
-A capture follows PyTorch's recipe: the step runs once eagerly on a side
+- a whole interval, ``pipeline._interval`` (K-1 ``track_refine`` steps
+  and the keyframe step, the outputs stacked), by :func:`run_interval`:
+  ``pipeline.process_interval`` on a CUDA state, so
+  ``process_intervals``, ``parallel/sharded.py::batched_process_interval``
+  and LC mode's batches;
+- one frame step, ``pipeline._track_refine_step`` or
+  ``pipeline._keyframe_step``, by :func:`run_step`:
+  ``pipeline.track_refine_step`` and ``keyframe_step`` called alone, so
+  ``runtime/runner.py``'s frame-at-a-time loop (recovery, outputs read
+  late) and LC mode's tail.
+
+A per-process cache keeps one ``torch.cuda.CUDAGraph`` for each body and
+key ``(cfg, replay, rotation given, the inputs' structure, shapes and
+dtypes, device)``; the shapes carry the video axis of a batched state,
+H, W and an interval's frame count K.  ``cfg`` decides the loop window
+(``_needs_window``) and the iteration counts, so it is part of the key
+as a whole.  All graphs of one device and video axis share one memory
+pool, whatever their body or key: a replay's outputs are cloned out
+before any other graph replays, so a later capture may reuse what an
+earlier one freed.
+
+A capture follows PyTorch's recipe: the body runs once eagerly on a side
 stream (lazy initialisations: cuBLAS and cuSOLVER handles and workspaces,
 K3's library), then is captured on that stream under ``torch.cuda.graph``
 from static copies of its inputs.  A replay
 
-- copies the caller's state tensors, the frame and the rotation, if any,
-  into the static inputs;
+- copies the caller's state tensors, the frame or frames and the
+  rotations, if any, into the static inputs (one copy each: a view such
+  as a batch's transposed frames is copied as it is);
 - replays the graph on the current stream;
 - clones every output out of the pool (an output that is a static input
   returns the caller's own tensor, which holds the same values): callers
   keep old states and snapshots (the loop window, LC mode's batch records,
   recovery, checkpoints), and the next replay overwrites the pool.
 
-Nothing is read back to the host.  The step bodies launch the same kernels
-in the same order as when they run eagerly, and no step sums with a float
+Nothing is read back to the host.  The bodies launch the same kernels in
+the same order as when they run eagerly, and no step sums with a float
 atomic (the keyframe step's propagate merges in a fixed order,
-``ops/propagate_kernel.py``), so a replay gives the eager step's bits.
+``ops/propagate_kernel.py``), so a replay gives the eager body's bits,
+and an interval's replay the bits of its steps' replays.
 
 The launch counts of the port's hand-written kernels, K3
 (``ops/reg_kernel.launches``), K1 (``ops/gn_kernel.launches``), K2
@@ -47,16 +63,17 @@ many, wrapper by wrapper.  Each replay adds those nodes
 to ``launches``, so the counts are the launches of the replays, as on the
 eager path.
 
-A failed capture or replay raises: nothing falls back to running the step
+A failed capture or replay raises: nothing falls back to running the body
 eagerly on the card.
 
-While a profiler records, :func:`run_step` names its phases on the
-trace's clock (``utils/profiling.span``): ``ellc.graph.capture``,
+While a profiler records, a replay names its phases on the trace's clock
+(``utils/profiling.span``): ``ellc.graph.capture``,
 ``ellc.graph.copy_in``, ``ellc.graph.replay`` and ``ellc.graph.clone_out``,
 so that the trace attributes the copies in and out, and the graph's own
-nodes, to them.  It counts its replays and captures
-(``profiling.counters()``), and :func:`stats` gives each graph's bytes
-copied in and cloned out a replay.
+nodes, to them.  It counts its replays (``interval_replays`` for an
+interval, ``graph_replays`` for a step) and captures (``graph_captures``,
+both kinds) in ``profiling.counters()``, and :func:`stats` gives each
+graph's body, frame count and bytes copied in and cloned out a replay.
 """
 
 from __future__ import annotations
@@ -136,7 +153,7 @@ def _build(spec, leaves: Iterator[torch.Tensor]):
 
 @dataclasses.dataclass
 class Graph:
-    """One captured step: its graph, static inputs and outputs, and what
+    """One captured body: its graph, static inputs and outputs, and what
     its capture recorded."""
     graph: torch.cuda.CUDAGraph
     static_in: List[torch.Tensor]
@@ -150,6 +167,7 @@ class Graph:
     warmup: Dict[str, Dict[str, int]]
     pool: Tuple[int, int]
     lead: Tuple[int, ...]       # the video axis, () for one video
+    frames: int                 # frames a replay advances: 1 or K
     capture_s: float            # warm-up and capture, host seconds
     instantiate_s: float
     nodes: Dict[str, int]       # graph nodes by type
@@ -158,7 +176,7 @@ class Graph:
     clone_out_bytes: int        # and its clones of static_out
 
 
-# (step function, key) -> its graph; (device, video axis) -> pool handle
+# (body, key) -> its graph; (device, video axis) -> pool handle
 _graphs: Dict[tuple, Graph] = {}
 _pools: Dict[tuple, Tuple[int, int]] = {}
 _streams: Dict[torch.device, torch.cuda.Stream] = {}
@@ -234,7 +252,7 @@ def _counting_into(counts: Dict[str, Dict[str, int]]) -> Iterator[None]:
 
 
 def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
-             pool: Tuple[int, int], lead: Tuple[int, ...],
+             pool: Tuple[int, int], lead: Tuple[int, ...], frames: int,
              device: torch.device) -> Graph:
     """Warm ``fn`` up on the device's side stream, capture it there from
     static copies of ``leaves`` into ``pool``, and instantiate it."""
@@ -271,8 +289,8 @@ def _capture(fn: Callable, leaves: List[torch.Tensor], spec,
     cloned = {id(t): t for j, t in enumerate(out_leaves) if j not in through}
     return Graph(graph=graph, static_in=static_in, static_out=out_leaves,
                  out_spec=out_spec, through=through, kernel_nodes=ours,
-                 warmup=warm, pool=pool,
-                 lead=lead, capture_s=t1 - t0, instantiate_s=t2 - t1,
+                 warmup=warm, pool=pool, lead=lead, frames=frames,
+                 capture_s=t1 - t0, instantiate_s=t2 - t1,
                  nodes=nodes, kernel_names=names,
                  copy_in_bytes=_nbytes(static_in),
                  clone_out_bytes=_nbytes(cloned.values()))
@@ -284,15 +302,35 @@ def _nbytes(tensors) -> int:
 
 def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
              init_rotation: Optional[torch.Tensor]):
-    """``fn(state, image, cfg, replay, init_rotation)`` through its
-    captured graph, capturing it on the first call of its key.  ``state``
-    and ``image`` (and ``init_rotation``, if given) are CUDA tensors on
-    one device; returns what ``fn`` returns, every tensor a new one (or
-    the caller's own, where the step passes an input through)."""
-    leaves, spec = tree_flatten((state, image, init_rotation))
-    device = image.device
+    """``fn(state, image, cfg, replay, init_rotation)``, a frame step's
+    body, through its captured graph, capturing it on the first call of
+    its key.  ``state`` and ``image`` (and ``init_rotation``, if given)
+    are CUDA tensors on one device; returns what ``fn`` returns, every
+    tensor a new one (or the caller's own, where the step passes an input
+    through).  Counts ``graph_replays``."""
+    return _run(fn, state, image, cfg, replay, init_rotation, 1,
+                "graph_replays")
+
+
+def run_interval(fn: Callable, state, frames: torch.Tensor, cfg,
+                 replay: bool, rotations: Optional[torch.Tensor]):
+    """``fn(state, frames, cfg, replay, rotations)``, a whole interval's
+    body over the K frames ``frames`` (K, ...) and their rotations (K, 6),
+    if given, through its captured graph, as :func:`run_step` runs a
+    step.  Counts ``interval_replays``."""
+    return _run(fn, state, frames, cfg, replay, rotations, len(frames),
+                "interval_replays")
+
+
+def _run(fn: Callable, state, images: torch.Tensor, cfg, replay: bool,
+         rotation: Optional[torch.Tensor], frames: int, counter: str):
+    """``fn`` over the tree ``(state, images, rotation)`` through its
+    graph: capture on the first call of its key, copy in, replay, count
+    the replay under ``counter``, clone out."""
+    leaves, spec = tree_flatten((state, images, rotation))
+    device = state.prev_wrt_kf.device
     sig = tuple((tuple(t.shape), t.dtype) for t in leaves)
-    key = (fn, (cfg, replay, init_rotation is not None, spec, sig, device))
+    key = (fn, (cfg, replay, rotation is not None, spec, sig, device))
     with torch.cuda.device(device):
         g = _graphs.get(key)
         if g is None:
@@ -300,20 +338,20 @@ def run_step(fn: Callable, state, image: torch.Tensor, cfg, replay: bool,
             if (device, lead) not in _pools:
                 _pools[(device, lead)] = torch.cuda.graph_pool_handle()
 
-            def body(state, image, init_rotation):
-                return fn(state, image, cfg, replay, init_rotation)
+            def body(state, images, rotation):
+                return fn(state, images, cfg, replay, rotation)
 
             with profiling.span("ellc.graph.capture"):
                 g = _graphs[key] = _capture(body, leaves, spec,
                                             _pools[(device, lead)], lead,
-                                            device)
+                                            frames, device)
             profiling.count("graph_captures")
         with profiling.span("ellc.graph.copy_in"):
             for dst, src in zip(g.static_in, leaves):
                 dst.copy_(src)
         with profiling.span("ellc.graph.replay"):
             g.graph.replay()
-    profiling.count("graph_replays")
+    profiling.count(counter)
     for label, mod in _KERNELS.items():
         mod.add_launches(g.kernel_nodes[label])
     with profiling.span("ellc.graph.clone_out"):
@@ -369,15 +407,17 @@ def pool_bytes(pool: Tuple[int, int]) -> int:
 
 
 def stats() -> List[dict]:
-    """One line per captured graph: the step, its key's config, replay,
-    rotation and video axis, capture and instantiate seconds, nodes by
-    type, the hand-written kernels' launches a replay and of the warm-up,
-    the bytes a replay copies in and clones out, and the pool's bytes."""
+    """One line per captured graph: the body (``interval``,
+    ``track_refine_step`` or ``keyframe_step``) and the frames a replay
+    advances, its key's config, replay, rotation and video axis, capture
+    and instantiate seconds, nodes by type, the hand-written kernels'
+    launches a replay and of the warm-up, the bytes a replay copies in and
+    clones out, and the pool's bytes."""
     rows = []
     for key, g in _graphs.items():
         fn, (cfg, replay_, rot, _, sig, device) = key
-        rows.append(dict(step=fn.__name__.lstrip("_"), replay=replay_,
-                         init_rotation=rot, lead=g.lead,
+        rows.append(dict(step=fn.__name__.lstrip("_"), frames=g.frames,
+                         replay=replay_, init_rotation=rot, lead=g.lead,
                          device=str(device), capture_s=g.capture_s,
                          instantiate_s=g.instantiate_s, nodes=dict(g.nodes),
                          kernel_names=dict(g.kernel_names),

@@ -12,15 +12,22 @@ The JAX package runs a keyframe interval as one compiled program (a
 (:func:`process_intervals`), to amortize the host's latency per dispatch
 (its ``runner.py``): at this resolution that latency dominates a single
 interval, which makes batching intervals the main single-video throughput
-lever.  Here each frame step on a CUDA state replays a captured CUDA graph
-(``runtime/graphs.py``): one replay takes the place of the step's ~24k
-kernel launches.  ``_track_refine_step`` and ``_keyframe_step`` are the
-step bodies the graphs capture, and what runs on CPU states.  A Python
-loop over the steps takes the place of ``lax.scan``, and nothing here
-waits for the device except the caller reading the outputs.  The JAX
-package's masked intervals (``valid``/``kf_valid``, one XLA program for
-every interval length of LC mode) have no counterpart: the per-step graphs
-serve K-1-frame, K-frame and tail intervals alike.  Nor has
+lever.  Here :func:`process_interval` on a CUDA state replays one captured
+CUDA graph of the whole interval (``runtime/graphs.py``): its body
+:func:`_interval` runs the step bodies ``_track_refine_step`` and
+``_keyframe_step`` over the interval's frames and stacks the outputs, and
+the state is copied into the graph and cloned out once an interval.
+:func:`process_intervals`, ``parallel/sharded.py::batched_process_interval``
+and LC mode's batches take that graph, one for each frame count (K-1 for
+a sequence's first interval, K after it).  :func:`track_refine_step` and
+:func:`keyframe_step` called alone replay a graph of the one step:
+``runtime/runner.py``'s frame-at-a-time loop (recovery, outputs read
+late) and LC mode's tail.  On a CPU state every body runs eagerly.  A
+Python loop over the steps takes the place of ``lax.scan``, and nothing
+here waits for the device except the caller reading the outputs.  The
+JAX package's masked intervals (``valid``/``kf_valid``, one XLA program
+for every interval length of LC mode) have no counterpart: a graph is
+captured for each frame count.  Nor has
 ``process_interval(s)_with_fallback``, which reruns intervals whose
 window-warp gather clipped; the port's gather is exact.
 
@@ -52,9 +59,11 @@ calls and launches as one video, each on V videos' data.
 
 While a profiler records, :func:`init_pipeline`, :func:`process_interval`
 and each frame step mark their span on the trace's clock
-(``utils/profiling.span``): ``ellc.init``, ``ellc.interval``, and
-``ellc.step.track_refine`` or ``ellc.step.keyframe`` around a step and its
-graph's phases (``runtime/graphs.py``).
+(``utils/profiling.span``): ``ellc.init``, ``ellc.interval`` around an
+interval and its graph's phases (``runtime/graphs.py``), and
+``ellc.step.track_refine`` or ``ellc.step.keyframe`` around a step
+called alone and its graph's phases, or around a step of an interval's
+body where it runs eagerly (:func:`_interval`).
 """
 
 from __future__ import annotations
@@ -411,6 +420,38 @@ def stack_trees(trees, dim: int):
                                   for ls in zip(*leaves)])
 
 
+def _frames(images, device) -> torch.Tensor:
+    """A sequence of K frames (tensors or arrays), or one (K, ...)
+    tensor or array, as one float32 tensor (K, ...) on ``device``."""
+    if isinstance(images, (list, tuple)) and isinstance(images[0],
+                                                        torch.Tensor):
+        return torch.stack([_image(im, device) for im in images])
+    return _image(images, device)
+
+
+def _interval(state: PipelineState, frames: torch.Tensor, cfg: ELLCConfig,
+              replay: bool = False, rotations=None
+              ) -> Tuple[PipelineState, FrameOutput,
+                         Optional[KeyframeSnapshot]]:
+    """The body of :func:`process_interval`, run eagerly: the
+    track_refine step body over ``frames`` (K, ...) but the last, the
+    keyframe step body on the last, the outputs stacked.  Each step's
+    span opens where the body runs eagerly: on a CPU state, and on the
+    card in its graph's warm-up and capture, not in a replay."""
+    rots = [None] * len(frames) if rotations is None else rotations
+    outs = []
+    for k in range(len(frames) - 1):
+        with profiling.span("ellc.step.track_refine"):
+            state, out = _track_refine_step(state, frames[k], cfg, replay,
+                                            rots[k])
+        outs.append(out)
+    with profiling.span("ellc.step.keyframe"):
+        state, out, snapshot = _keyframe_step(state, frames[-1], cfg,
+                                              replay, rots[-1])
+    outs.append(out)
+    return state, stack_outputs(outs), snapshot
+
+
 def process_interval(state: PipelineState, images, cfg: ELLCConfig,
                      replay: bool = False, init_rotations=None
                      ) -> Tuple[PipelineState, FrameOutput,
@@ -418,23 +459,23 @@ def process_interval(state: PipelineState, images, cfg: ELLCConfig,
     """One keyframe interval: track+refine over all frames but the last,
     then the keyframe step on the last.  ``images`` is a sequence of
     (H, W) frames, or of (V, H, W) frames for a batched state (K of them,
-    or K-1 for a sequence's first interval);
+    or K-1 for a sequence's first interval), or one tensor or array of
+    them, (K, H, W) or (K, V, H, W);
     ``init_rotations``, if given, holds one RA-corrected world pose per
     frame (the LC replay), as one (K, 6) array or tensor.  Returns the new
     state, the stacked per-frame outputs and the old keyframe's snapshot
-    (None without the loop window).  On a CUDA state every step replays
-    its captured graph."""
+    (None without the loop window).  On a CUDA state one replay of the
+    interval's captured graph runs it (``graphs.run_interval``), on a CPU
+    state :func:`_interval` runs eagerly."""
     with profiling.span("ellc.interval"):
-        rots = ([None] * len(images) if init_rotations is None
+        frames = _frames(images, state.device)
+        rots = (None if init_rotations is None
                 else _image(init_rotations, state.device))
-        outs = []
-        for img, rot in zip(images[:-1], rots[:-1]):
-            state, out = track_refine_step(state, img, cfg, replay, rot)
-            outs.append(out)
-        state, out, snapshot = keyframe_step(state, images[-1], cfg, replay,
-                                             rots[-1])
-        outs.append(out)
-        return state, stack_outputs(outs), snapshot
+        if state.device.type == "cuda":
+            return graphs.run_interval(_interval, state, frames, cfg,
+                                       replay, rots)
+        # as the graph's static input holds them
+        return _interval(state, frames.contiguous(), cfg, replay, rots)
 
 
 def process_intervals(state: PipelineState, images, cfg: ELLCConfig,
@@ -443,7 +484,8 @@ def process_intervals(state: PipelineState, images, cfg: ELLCConfig,
                                  Optional[KeyframeSnapshot]]:
     """N whole keyframe intervals with nothing read back between them:
     the port of the JAX package's ``process_intervals`` (one dispatch of
-    N scanned intervals there, N x K graph replays here on a CUDA state).
+    N scanned intervals there, N replays of the interval's graph here on a
+    CUDA state).
 
     ``images`` is (N, K, H, W), or (N, K, V, H, W) for a batched state;
     ``init_rotations``, if given, (N, K, 6).  Returns the new state, the

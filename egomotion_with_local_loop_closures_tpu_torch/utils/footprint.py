@@ -6,14 +6,16 @@ the device, and refuse a video batch that cannot fit with a clean
 "requires X, have Y" error instead of a run that dies out of memory.
 
 PyTorch has no ahead-of-time memory analysis of a program, so on a CUDA
-device :func:`interval_footprint` measures.  It runs one batched interval
-of ``keyframe_interval`` seeded frames at V = 1 and at V = 2 (after a
+device :func:`interval_footprint` measures.  It runs a sequence's first
+two batched intervals, of ``keyframe_interval`` - 1 and
+``keyframe_interval`` seeded frames, at V = 1 and at V = 2 (after a
 short unmeasured run that makes the allocations a process keeps, such as
 the cuBLAS workspaces), each after ``torch.cuda.reset_peak_memory_stats``,
 reads ``torch.cuda.max_memory_allocated`` above what was allocated before
 the probe, and extrapolates linearly in V.  Each probe captures its
-V's CUDA graphs of the frame steps afresh (``runtime/graphs.py``), so
-the peak holds their static inputs and memory pool, and releases them
+V's CUDA graphs of the two intervals afresh (``runtime/graphs.py``): a
+run holds both, each with its own static inputs and outputs, so the
+peak holds them and their memory pool, and the probe releases them
 after.  A run holds one such pool for its video axis, whatever graphs it
 captures into it, and keeps it after the run; what the live pools hold
 unused is not counted as free (:func:`device_bytes_limit`).  The
@@ -77,9 +79,10 @@ def device_bytes_limit(device=None) -> Optional[int]:
 
 @dataclasses.dataclass
 class IntervalFootprint:
-    """Memory requirement of ONE batched ``process_interval`` at V videos:
-    measured and extrapolated on a CUDA device, from the shapes alone on
-    the CPU."""
+    """Memory requirement of batched ``process_interval`` calls at V
+    videos (a run's K-1-frame and K-frame interval graphs): measured and
+    extrapolated on a CUDA device, from the shapes of one interval alone
+    on the CPU."""
     videos: int
     argument_bytes: int        # pipeline states + image batch
     output_bytes: int          # new states + per-frame outputs
@@ -109,13 +112,13 @@ class IntervalFootprint:
                 f"device limit {lim}")
 
 
-def _probe(videos: int, frames: int, cfg: ELLCConfig,
+def _probe(videos: int, sizes: Tuple[int, ...], cfg: ELLCConfig,
            device: torch.device) -> int:
     """Peak bytes allocated above the current level while ``videos``
-    seeded videos are initialized and advanced by one interval of
-    ``frames`` frames."""
+    seeded videos are initialized and advanced by intervals of ``sizes``
+    frames."""
     rng = np.random.default_rng(videos)
-    images = rng.integers(0, 256, size=(videos, frames + 1) + cfg.shape
+    images = rng.integers(0, 256, size=(videos, 1 + sum(sizes)) + cfg.shape
                           ).astype(np.float32)
     gens = [torch.Generator().manual_seed(v) for v in range(videos)]
     # a run that captures its graphs: their static inputs and pool count
@@ -124,8 +127,11 @@ def _probe(videos: int, frames: int, cfg: ELLCConfig,
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     states = sharded.batched_init(images[:, 0], cfg, device, gens)
-    states, outs = sharded.batched_process_interval(states, images[:, 1:],
-                                                    cfg)
+    start = 1
+    for n in sizes:
+        states, outs = sharded.batched_process_interval(
+            states, images[:, start:start + n], cfg)
+        start += n
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - base
     del states, outs
@@ -134,23 +140,26 @@ def _probe(videos: int, frames: int, cfg: ELLCConfig,
 
 
 def _measured_peaks(cfg: ELLCConfig, device) -> Tuple[int, int]:
-    """The measured peak bytes of one batched interval at V = 1 and V = 2
-    on ``device`` (probed once per configuration and device)."""
+    """The measured peak bytes of a sequence's first two batched intervals
+    (K-1 and K frames) at V = 1 and V = 2 on ``device`` (probed once per
+    configuration and device)."""
     device = torch.device(device)
     key = (cfg, str(device))
     if key not in _probes:
-        _probe(1, 2, cfg, device)          # allocations the process keeps
+        _probe(1, (2,), cfg, device)        # allocations the process keeps
         K = cfg.keyframe_interval
-        _probes[key] = (_probe(1, K, cfg, device), _probe(2, K, cfg, device))
+        _probes[key] = (_probe(1, (K - 1, K), cfg, device),
+                        _probe(2, (K - 1, K), cfg, device))
     return _probes[key]
 
 
 def interval_footprint(videos: int, cfg: ELLCConfig, device="cuda"
                        ) -> IntervalFootprint:
-    """The footprint of one batched interval of ``videos`` videos: on a
-    CUDA device the measured peak at V = 1 and 2 extrapolated linearly in
-    V (the first call on a configuration runs the probes: a few seconds at
-    480x270), on the CPU the shapes' bytes."""
+    """The footprint of batched intervals of ``videos`` videos: on a CUDA
+    device the measured peak of a sequence's first two intervals at V = 1
+    and 2 extrapolated linearly in V (the first call on a configuration
+    runs the probes: a few seconds at 480x270), on the CPU the shapes'
+    bytes of one interval."""
     device = torch.device(device)
     K = cfg.keyframe_interval
     state_b = videos * tree_bytes(checkpoint.template_pipeline_state(cfg))

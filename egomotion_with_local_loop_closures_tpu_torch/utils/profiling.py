@@ -12,7 +12,8 @@ Inside the program, :func:`span` names a range on the profiler's clock
 that a trace attributes host time and the device operations launched in
 it to the program's phases; with no profiler recording it costs one
 check.  :func:`counters` reads the counts kept at the same boundaries:
-``runtime/graphs.py``'s replays and captures, and K1's live GN iterations
+``runtime/graphs.py``'s replays (of interval graphs and of step graphs
+apart) and captures, and K1's live GN iterations
 (:func:`k1_live`), counted on the device by the kernels and on the CPU by
 the plain twin.
 """
@@ -145,9 +146,11 @@ def span(name: str):
     return _NULL
 
 
-# runtime/graphs.py's run_step: replays, and captures (a capture after
-# set-up is a graph built again inside the timed window)
-_host_counts: Dict[str, int] = {"graph_replays": 0, "graph_captures": 0}
+# runtime/graphs.py: replays of a whole interval's graph, replays of a
+# frame step's graph, and captures of either (a capture after set-up is a
+# graph built again inside the timed window)
+_host_counts: Dict[str, int] = {"interval_replays": 0, "graph_replays": 0,
+                                "graph_captures": 0}
 # K1's live-iteration tables by device, the newest last: a table that had
 # to grow stays, since graphs captured before write into it
 _k1_live: Dict[torch.device, List[torch.Tensor]] = {}
@@ -163,7 +166,7 @@ def k1_live(device: torch.device, levels: int, iters: int) -> torch.Tensor:
     (levels, iters): entry [l][i] counts the videos not frozen at the
     start of iteration i of level l, the iterations whose linearization
     read the level's planes.  Made, or made larger, on a call outside any
-    CUDA graph capture (the step graphs' eager warm-up), as K1's
+    CUDA graph capture (the graphs' eager warm-up), as K1's
     workspace is."""
     tables = _k1_live.setdefault(device, [])
     if tables and tables[-1].shape[0] >= levels \
@@ -183,10 +186,12 @@ def k1_live(device: torch.device, levels: int, iters: int) -> torch.Tensor:
 
 
 def counters() -> Dict[str, Any]:
-    """The program's counters: ``graph_replays`` and ``graph_captures``,
-    and ``k1_live``, each device's table (the sum of its tables) as lists
-    of ints by the device's name.  Reads the tables back from their
-    devices, so it waits for them: a reader's call, not the hot path's."""
+    """The program's counters: ``interval_replays`` (a whole interval's
+    graph), ``graph_replays`` (a frame step's graph alone) and
+    ``graph_captures``, and ``k1_live``, each device's table (the sum of
+    its tables) as lists of ints by the device's name.  Reads the tables
+    back from their devices, so it waits for them: a reader's call, not
+    the hot path's."""
     live = {}
     for device, tables in _k1_live.items():
         total = torch.zeros((max(t.shape[0] for t in tables),

@@ -1,22 +1,27 @@
-"""The port's graphed frame steps (runtime/graphs.py), process_intervals and
-run_sequence(intervals_per_dispatch=...), at TEST_CONFIG size.
+"""The port's graphed intervals and frame steps (runtime/graphs.py),
+process_intervals and run_sequence(intervals_per_dispatch=...), at
+TEST_CONFIG size.
 
 On the CPU (one torch thread):
 
-- the step bodies that the CUDA graphs capture never wait for the host
-  and copy no host data to the device, on four paths (plain GN, the loop
-  window, a replay with an initial rotation, two batched videos): after
-  one warm-up call, as a capture follows one, a ``TorchDispatchMode``
-  finds no ``_local_scalar_dense`` (``.item()``, ``float(t)``,
-  ``bool(t)``), ``nonzero``, ``masked_select`` or ``unique`` and no
-  ``lift_fresh``, a tensor built from host data: the card refuses the
-  copy of one during a capture, even of a single element (a scalar
-  written into a slice: those are ``fill_`` calls now);
+- the step bodies and the interval body that the CUDA graphs capture
+  never wait for the host and copy no host data to the device, on four
+  paths (plain GN, the loop window, a replay with an initial rotation,
+  two batched videos): after one warm-up call, as a capture follows one,
+  a ``TorchDispatchMode`` finds no ``_local_scalar_dense`` (``.item()``,
+  ``float(t)``, ``bool(t)``), ``nonzero``, ``masked_select`` or
+  ``unique`` and no ``lift_fresh``, a tensor built from host data: the
+  card refuses the copy of one during a capture, even of a single
+  element (a scalar written into a slice: those are ``fill_`` calls
+  now);
 - ``geom.linear.solve_spd`` (one Cholesky factorization and two
   triangular solves, for one system or a batch, the route a CUDA graph
   captures) against the JAX package's unrolled ``solve_spd``, within a
   few float32 units in the last place of the solution (atol 2e-6, rtol
   1e-5), and NaN where A is not positive definite;
+- ``process_interval`` on a CPU state equals its step bodies called one
+  by one and their outputs stacked, bit for bit, on the four paths, for
+  K-1 and K frames;
 - ``process_intervals`` over two intervals equals two ``process_interval``
   calls bit for bit (window off and on, with rotations, two videos), and
   matches the JAX package's ``process_intervals`` within
@@ -37,11 +42,16 @@ equal to NaN), the keyframe step too (``propagate`` merges in a fixed
 order, one launch of each merge kernel), and K3's and K1's launch counts
 of a replay equal
 the eager step's (K1: one launch of each of its kernels per GN iteration,
-the sum of the level iteration counts).  Two passes of one interval:
-``graph_replays`` counts every ``run_step`` call, the second pass
-captures nothing, each graph's bytes copied in are its inputs' bytes, and
-``k1_live`` counts every align at each level's first iteration: the
-replays' and the captures' eager warm-ups'.
+the sum of the level iteration counts).  An interval's graph equals its
+steps' graphs replayed one by one, bit for bit, in every state field, the
+outputs and the snapshot, with the same launches, on the four paths and
+for K-1 and K frames.  Two passes of one interval:
+``interval_replays`` counts every ``process_interval`` call and
+``graph_replays`` none, the second pass captures nothing, the graph's
+bytes copied in are the state's and the K frames', and ``k1_live``
+counts every align at each level's first iteration: the replays' and the
+capture's eager warm-up's; a K-1 interval captures a graph of its own,
+and a step called alone replays its step's graph.
 """
 
 import dataclasses
@@ -120,21 +130,32 @@ class _Recorder(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _start(path, frames):
-    """(cfg, state, frame, rotation) of one of the four capture paths."""
-    cfg = CFG.replace(do_loop_closure=True) if path == "window" else CFG
+def _start(path, frames, cfg=CFG, n=0):
+    """(cfg, state, frame, rotation) of one of the four capture paths;
+    with ``n``, the ``n`` frames after the init, (n, ...), and their
+    rotations, (n, 6)."""
+    cfg = cfg.replace(do_loop_closure=True) if path == "window" else cfg
+    ids = list(range(1, 1 + max(n, 1)))
     if path == "videos":
         state = sharded.batched_init(frames[[0, 14]], cfg, "cpu")
-        return cfg, state, torch.as_tensor(frames[[1, 15]]), None
-    state = pipeline.init_pipeline(frames[0], cfg, "cpu")
-    rot = torch.full((6,), 0.01) if path == "replay" else None
-    return cfg, state, torch.as_tensor(frames[1]), rot
+        images = torch.stack([torch.as_tensor(frames[[k, 14 + k]])
+                              for k in ids])
+    else:
+        state = pipeline.init_pipeline(frames[0], cfg, "cpu")
+        images = torch.as_tensor(frames[ids])
+    rots = torch.full((len(ids), 6), 0.01) if path == "replay" else None
+    if n:
+        return cfg, state, images, rots
+    return cfg, state, images[0], None if rots is None else rots[0]
 
 
-@pytest.mark.parametrize("step", ["_track_refine_step", "_keyframe_step"])
+@pytest.mark.parametrize("step", ["_track_refine_step", "_keyframe_step",
+                                  "_interval"])
 @pytest.mark.parametrize("path", ["gn", "window", "replay", "videos"])
 def test_step_bodies_are_capture_safe(frames, path, step):
-    cfg, state, image, rot = _start(path, frames)
+    # the interval body over two frames: a track_refine step, a keyframe
+    cfg, state, image, rot = _start(path, frames,
+                                    n=2 if step == "_interval" else 0)
     fn = getattr(pipeline, step)
     replay = path == "replay"
     fn(state, image, cfg, replay, rot)         # the warm-up of a capture
@@ -224,6 +245,34 @@ def test_process_intervals_equals_process_interval_calls(
         _assert_bits(got[2], pipeline.stack_trees(snaps, 0))
     else:
         assert got[2] is None and snaps == [None] * len(snaps)
+
+
+def _steps(fn_track, fn_keyframe, state, images, cfg, replay, rots):
+    """An interval as its steps, ``fn_track`` over every frame but the
+    last and ``fn_keyframe`` on the last, the outputs stacked."""
+    rots = [None] * len(images) if rots is None else rots
+    outs = []
+    for k in range(len(images) - 1):
+        state, o = fn_track(state, images[k], cfg, replay, rots[k])
+        outs.append(o)
+    state, o, snap = fn_keyframe(state, images[-1], cfg, replay, rots[-1])
+    outs.append(o)
+    return state, pipeline.stack_outputs(outs), snap
+
+
+@pytest.mark.parametrize("frames_of", ["K-1", "K"])
+@pytest.mark.parametrize("path", ["gn", "window", "replay", "videos"])
+def test_process_interval_equals_its_step_bodies(half, path, frames_of):
+    frames, icfg = half
+    n = icfg.keyframe_interval - (frames_of == "K-1")
+    cfg, state, images, rots = _start(path, frames, icfg, n)
+    replay = path == "replay"
+    got = pipeline.process_interval(state, images, cfg, replay, rots)
+    assert got[1].seeds.shape == state.global_scale.shape + (n,)
+    assert (got[2] is None) == (path != "window")
+    _assert_bits(got, _steps(pipeline._track_refine_step,
+                             pipeline._keyframe_step, state, images, cfg,
+                             replay, rots))
 
 
 def test_process_intervals_of_two_videos_equals_process_interval_calls(
@@ -349,6 +398,36 @@ def test_graphed_steps_equal_eager_on_the_card(cuda_device, frames, path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frames_of", ["K-1", "K"])
+@pytest.mark.parametrize("path", ["gn", "window", "replay", "videos"])
+def test_interval_graph_equals_step_graphs_on_the_card(cuda_device, frames,
+                                                       path, frames_of):
+    n = CFG.keyframe_interval - (frames_of == "K-1")
+    cfg, state, images, rots = _start(path, frames, CFG, n)
+    state, images = _card(state, cuda_device), images.to(cuda_device)
+    rots = None if rots is None else rots.to(cuda_device)
+    replay = path == "replay"
+    mods = (reg_kernel, gn_kernel, stereo_kernel, propagate_kernel)
+    graphs.release()
+    profiling.reset_counters()
+    for m in mods:
+        m.reset_launches()
+    got = pipeline.process_interval(state, images, cfg, replay, rots)
+    launches = [dict(m.launches) for m in mods]
+    counts = profiling.counters()
+    assert (counts["interval_replays"], counts["graph_replays"]) == (1, 0)
+    for m in mods:
+        m.reset_launches()
+    want = _steps(pipeline.track_refine_step, pipeline.keyframe_step,
+                  state, images, cfg, replay, rots)
+    assert [dict(m.launches) for m in mods] == launches
+    counts = profiling.counters()
+    assert (counts["interval_replays"], counts["graph_replays"]) == (1, n)
+    _assert_bits(got, want)
+    graphs.release()
+
+
+@pytest.mark.cuda
 def test_graph_counters_on_the_card(cuda_device, frames, monkeypatch):
     monkeypatch.setattr(profiling, "_k1_live", {})
     graphs.release()
@@ -360,19 +439,28 @@ def test_graph_counters_on_the_card(cuda_device, frames, monkeypatch):
     K = len(images)
     pipeline.process_interval(state, images, CFG)
     first = profiling.counters()
-    assert first["graph_replays"] == K and first["graph_captures"] == 2
+    assert first["interval_replays"] == 1 and first["graph_replays"] == 0
+    assert first["graph_captures"] == 1
     pipeline.process_interval(state, images, CFG)
     second = profiling.counters()
-    assert second["graph_replays"] == 2 * K
-    assert second["graph_captures"] == 2
+    assert second["interval_replays"] == 2 and second["graph_replays"] == 0
+    assert second["graph_captures"] == 1
     rows = graphs.stats()
-    assert len(rows) == 2
+    assert [(r["step"], r["frames"]) for r in rows] == [("interval", K)]
+    # the state and the K frames
     inputs = sum(t.numel() * t.element_size()
-                 for t in _leaves((state, images[0])))
-    for row in rows:
-        assert row["copy_in_bytes"] == inputs
-        assert row["clone_out_bytes"] > 0
-    # every replay's aligns and the two captures' eager warm-ups
+                 for t in _leaves((state, images)))
+    assert rows[0]["copy_in_bytes"] == inputs
+    assert rows[0]["clone_out_bytes"] > 0
+    # every replay's aligns and the capture's eager warm-up's K
     table = second["k1_live"][str(images.device)]
-    assert [row[0] for row in table] == [2 * K + 2] * CFG.num_levels
+    assert [row[0] for row in table] == [3 * K] * CFG.num_levels
+    # a K-1 interval: a graph of its own; a step alone: its step's graph
+    pipeline.process_interval(state, images[1:], CFG)
+    pipeline.track_refine_step(state, images[0], CFG)
+    third = profiling.counters()
+    assert third["interval_replays"] == 3 and third["graph_replays"] == 1
+    assert third["graph_captures"] == 3
+    assert sorted((r["step"], r["frames"]) for r in graphs.stats()) == [
+        ("interval", K - 1), ("interval", K), ("track_refine_step", 1)]
     graphs.release()

@@ -153,7 +153,8 @@ def test_plain_path_counts_every_video_align(traced_interval):
     for row, n in zip(table, CFG.max_iters):
         assert all(a >= b for a, b in zip(row, row[1:]))
         assert not any(row[n:])
-    assert counters["graph_replays"] == counters["graph_captures"] == 0
+    assert counters["interval_replays"] == counters["graph_replays"] \
+        == counters["graph_captures"] == 0
 
 
 def test_k1_live_grows_keeps_its_counts_and_resets(monkeypatch):
